@@ -3,13 +3,16 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card, decodes the all-intra streams through
-decode_stream and checks every picture's checksum against the values the
-JAX package recorded (h264bsd_tpu_torch/testdata/reference_checksums.json,
-written by tools/record_torch_port_checksums.py), then times each kernel
-with CUDA events. Prints one JSON line per phase, then the kernel table,
-the card's name and power limit, and as its last line
-{"ok": true, "device": {...}}. Any failure raises (exit code != 0).
+PyTorch version on the card, decodes all-intra, P (IPPP and real motion)
+and partial-loss streams through decode_stream and checks every
+picture's checksum against the values the JAX package recorded
+(h264bsd_tpu_torch/testdata/reference_checksums.json, written by
+tools/record_torch_port_checksums.py), then times each kernel: its device
+time from torch.profiler's kernel events, the CUDA-event time of the
+wrapper call, and the plain version's time. Prints one JSON line per
+phase, then the kernel table, the card's name and power limit, and as
+its last line {"ok": true, "device": {...}}. Any failure raises (exit
+code != 0).
 
 Usage: python3 chip_smoke.py     (needs one CUDA device)
 """
@@ -24,14 +27,23 @@ import time
 
 import torch
 
-# the least time the card could take (bound_ms): NVIDIA's H100 SXM data
-# sheet, HBM rate and the float32 rate outside the tensor cores (the
-# kernels do int32 ALU work, which has no tensor-core path)
+# the least time the card could take (bound_ms). Bytes: the H100 SXM data
+# sheet's HBM rate. Operations: the kernels do int32 ALU work, which has
+# no tensor-core path, and a Hopper SM runs 64 INT32 lanes per clock
+# (half its 128 FP32 lanes), so 132 SMs x 64 x 1.98 GHz (boost clock) =
+# 16.7e12 int32 operations per second.
 HBM_BYTES_PER_S = 3.35e12
-ALU_OPS_PER_S = 67e12
+ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per filtered pel line (luma / chroma deblocking) and per
 # reconstructed pel (intra): prediction, residual add and clip
 OPS_LUMA_LINE, OPS_CHROMA_LINE, OPS_INTRA_PEL = 40, 20, 30
+# int32 operations per predicted luma pel by fractional case xFrac*4 +
+# yFrac (a 6-tap half-pel value ~14 with its rounding and clip, an average
+# 3, the centre j 74 from six horizontal taps and one vertical), and per
+# bilinear chroma pel
+LUMA_CASE_OPS = (1, 17, 14, 17, 17, 31, 91, 31, 14, 91, 74, 91, 17, 31, 91,
+                 31)
+OPS_CHROMA_PEL = 10
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -43,7 +55,20 @@ KERNELS = {
                    "h264bsd_tpu/ops/pallas_intra.py:379"),
     "intra_wf": ("h264bsd_tpu_torch/csrc/intra_wf.cu",
                  "h264bsd_tpu/ops/pallas_intra_wf.py:600"),
+    "mc_uniform": ("h264bsd_tpu_torch/csrc/mc.cu",
+                   "h264bsd_tpu/ops/pallas_mc.py:174 and :226"),
+    "mc_exception": ("h264bsd_tpu_torch/csrc/mc.cu",
+                     "h264bsd_tpu/ops/pallas_mc.py:284 and :306"),
 }
+# each kernel's CUDA function (its name in the profiler's events) and the
+# decode phase whose pictures give its launches per frame
+DEVICE_FN = {k: f"{k}_kernel" for k in KERNELS}
+PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
+                   "intra_wf": "decode_720p_all_i",
+                   "intra_list": "decode_1080p_motion",
+                   "deblock_raster": "decode_small",
+                   "mc_uniform": "decode_1080p_motion",
+                   "mc_exception": "decode_1080p_motion"}
 
 
 def emit(record):
@@ -83,8 +108,39 @@ def timed_ms(fn, args, reps):
     return total / reps
 
 
+def device_ms(fn, args, reps, name, launches_per_call):
+    """Device time per call of kernel `name`, which launches
+    `launches_per_call` times per call: the mean duration of its
+    torch.profiler kernel events over `reps` calls on fresh copies of the
+    planes (the copies are other kernels, not counted), times the
+    launches per call. The mean, not the sum, because the profiler may
+    drop an event (it recorded 19 of 20 launches of K8 once). Returns
+    (ms, events recorded per call)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn(*planes_copy(args))
+        torch.cuda.synchronize()
+    us = [e.time_range.end - e.time_range.start for e in prof.events()
+          if e.device_type == torch.autograd.DeviceType.CUDA
+          and e.name.split("(")[0] == DEVICE_FN[name]]
+    if not us:
+        raise AssertionError(f"{name}: the profiler recorded no device time")
+    return sum(us) / len(us) / 1e3 * launches_per_call, len(us) / reps
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def mc_ops(mvx, mvy, pels_luma, pels_chroma):
+    """int32 operations of the one fractional case each predicted unit
+    (an MB or a 4x4 block, with its MV) needs."""
+    frac = (mvx & 3) * 4 + (mvy & 3)
+    per = torch.as_tensor(LUMA_CASE_OPS, device=frac.device)[frac.long()]
+    return int(per.sum()) * pels_luma + frac.numel() * pels_chroma \
+        * OPS_CHROMA_PEL
 
 
 def main() -> int:
@@ -102,10 +158,14 @@ def main() -> int:
     from h264bsd_tpu_torch.ops.cuda_intra import intra_pass_cuda
     from h264bsd_tpu_torch.ops.cuda_intra_wf import (
         intra_pass_wavefront_cuda, intra_pass_wavefront_plain)
+    from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
+                                               mc_exception_plain,
+                                               mc_uniform_cuda,
+                                               mc_uniform_plain)
     from h264bsd_tpu_torch.ops.deblock import anti_diagonals
     from h264bsd_tpu_torch.ops.intra import intra_pass_list
     from h264bsd_tpu_torch.utils import kernel_cases as kc
-    from h264bsd_tpu_torch.utils import streamgen
+    from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
@@ -159,6 +219,21 @@ def main() -> int:
         check("intra_wf", intra_pass_wavefront_cuda,
               intra_pass_wavefront_plain,
               kc.intra_inputs(kc.intra_case(7, *dims), dev), dims)
+    # MC at the decode tests' size, a mid size and 1080p, 1, 4 and 16
+    # slots; the exception kernel over the uniform grids, once with the
+    # real entry count and once walking the padding too
+    for seed, (dims, n_slots) in enumerate([((6, 4), 1), ((20, 12), 4),
+                                            ((120, 68), 16)]):
+        case = kc.mc_case(seed, *dims, n_slots, 0.25)
+        args = kc.mc_inputs(case, dev)
+        check("mc_uniform", mc_uniform_cuda, mc_uniform_plain, args[:5],
+              dims)
+        grids = mc_uniform_plain(*args[:5], *dims)
+        for n_exc in (case["n_exc"], None):
+            check("mc_exception",
+                  lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
+                  lambda *a: mc_exception_plain(*a, n_exc=n_exc),
+                  grids + args, dims)
     emit({"phase": "kernels", "checks": checks,
           "launches": dict(_kernels.LAUNCHES)})
 
@@ -166,10 +241,11 @@ def main() -> int:
     ref = json.loads(open("h264bsd_tpu_torch/testdata/"
                           "reference_checksums.json").read())
     launches = {k: 0 for k in KERNELS}
+    per_frame = {}
 
     def decode(name, timed):
         e = ref[name]
-        data = getattr(streamgen, e["maker"])(*e["args"])
+        data = make_recorded_stream(e)
         if hashlib.sha256(data).hexdigest() != e["sha256"]:
             raise AssertionError(f"{name}: stream bytes differ from the "
                                  "recorded stream")
@@ -192,30 +268,47 @@ def main() -> int:
             rec["fps"] = n / (time.perf_counter() - t0)
         return rec, counts
 
-    for phase, name, need in [("decode_720p_all_i", "intra_720p",
-                               ("intra_wf", "deblock_wf")),
-                              ("decode_1080p_all_i", "intra_1080p",
-                               ("intra_wf", "deblock_wf"))]:
+    def note_per_frame(phase, counts, pictures):
+        for k, p in PER_FRAME_PHASE.items():
+            if p == phase:
+                per_frame[k] = counts[k] / pictures
+
+    for phase, name, need in [
+            ("decode_720p_all_i", "intra_720p", ("intra_wf", "deblock_wf")),
+            ("decode_1080p_all_i", "intra_1080p",
+             ("intra_wf", "deblock_wf")),
+            ("decode_1080p_ippp", "ippp_1080p", ("mc_uniform",)),
+            ("decode_1080p_motion", "motion_1080p",
+             ("mc_uniform", "mc_exception", "intra_list"))]:
         rec, counts = decode(name, timed=True)
         if not all(counts[k] > 0 for k in need):
             raise AssertionError(f"{name}: kernels {need} not all launched: "
                                  f"{counts}")
+        note_per_frame(phase, counts, rec["pictures"])
         emit({"phase": phase, **rec})
-    small = [decode(name, timed=False)
-             for name in ("intra_40x23", "lowqp_i", "intra_2x4")]
-    small_counts = {k: sum(c[k] for _, c in small) for k in KERNELS}
-    if not (small_counts["intra_list"] > 0
-            and small_counts["deblock_raster"] > 0):
-        raise AssertionError(f"small streams: K2/K8 not launched: "
-                             f"{small_counts}")
-    emit({"phase": "decode_small", "streams": [r for r, _ in small]})
+    for phase, names, need in [
+            ("decode_small", ("intra_40x23", "lowqp_i", "intra_2x4"),
+             ("intra_list", "deblock_raster")),
+            ("decode_small_p",
+             ("ippp_4x4", "six_ref_cycle", "frame_num_gap", "longterm",
+              "intra_in_p", "intra_in_p_constrained", "pcm",
+              "deblock_control", "slice_groups", "redundant", "motion_6x4",
+              "loss_idr_slice", "loss_p_slice"),
+             ("mc_uniform", "mc_exception", "intra_list", "deblock_wf"))]:
+        runs = [decode(name, timed=False) for name in names]
+        counts = {k: sum(c[k] for _, c in runs) for k in KERNELS}
+        if not all(counts[k] > 0 for k in need):
+            raise AssertionError(f"{phase}: kernels {need} not all "
+                                 f"launched: {counts}")
+        note_per_frame(phase, counts, sum(r["pictures"] for r, _ in runs))
+        emit({"phase": phase, "streams": [r for r, _ in runs]})
     missing = [k for k, v in launches.items() if v == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
     # ---- timing at the main path's shapes (720p for K1/K7, 40x23 for K2,
-    # 2x4 for K8), kernel vs plain on the same inputs
+    # 2x4 for K8, 1080p for MC), kernel vs plain on the same inputs
     def deblock_bound(args, dims):
         y, cb, cr, bs_left, bs_top, lt, ct = args
         lines = 4 * int((bs_left > 0).sum() + (bs_top > 0).sum())
@@ -239,13 +332,31 @@ def main() -> int:
             byt += 4 * ids.numel()
         return byt, ops
 
+    def mc_uniform_bound(args, dims):
+        mv = args[3]
+        n = mv.shape[0]
+        # one ring read per predicted pel, the grids written once, block
+        # 0's MV and slot as int32
+        byt = 2 * 384 * n + 12 * n
+        return byt, mc_ops(mv[:, 0, 0], mv[:, 0, 1], 256, 64 * 2)
+
+    def mc_exception_bound(args, dims, n_exc):
+        mv, ids = args[6], args[8][:n_exc].long()
+        b = torch.as_tensor([[0, 1, 4, 5], [2, 3, 6, 7], [8, 9, 12, 13],
+                             [10, 11, 14, 15]], device=ids.device)[ids % 4]
+        m = mv[(ids // 4)[:, None], b].reshape(-1, 2)
+        n_blk = m.shape[0]
+        # per 4x4 block: 24 pels read and written, MV and slot, its id
+        byt = 2 * 24 * n_blk + 12 * n_blk + 4 * n_exc
+        return byt, mc_ops(m[:, 0], m[:, 1], 16, 4 * 2)
+
     rows = []
 
     def time_kernel(name, kernel, plain, args, dims, bound, serial,
                     plain_reps):
         """serial: the kernel's chain of dependent steps (diagonals for
         the wavefront kernels, one CUDA launch each; MBs walked by the
-        single launch of the raster and list kernels)."""
+        single launch of the raster and list kernels; 1 for MC)."""
         got = kernel(*planes_copy(args), *dims)
         want = plain(*planes_copy(args), *dims)
         err = max_abs_err(got, want)
@@ -253,7 +364,10 @@ def main() -> int:
         if err:
             raise AssertionError(f"{name} at {dims}: kernel differs from "
                                  f"its plain version (max |err| {err})")
-        ms = timed_ms(lambda *a: kernel(*a, *dims), args, 20)
+        per_call = serial if name.endswith("_wf") else 1
+        ms, recorded = device_ms(lambda *a: kernel(*a, *dims), args, 20,
+                                 name, per_call)
+        event_ms = timed_ms(lambda *a: kernel(*a, *dims), args, 20)
         plain_ms = timed_ms(lambda *a: plain(*a, *dims), args, plain_reps)
         byt, ops = bound
         t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
@@ -266,9 +380,11 @@ def main() -> int:
                      "bound_by": "bytes" if t_bytes >= t_ops
                      else "operations",
                      "library_ms": None, "dims": list(dims),
-                     "cuda_launches_per_call":
-                         serial if name.endswith("_wf") else 1,
-                     "serial_steps": serial})
+                     "event_ms": event_ms,
+                     "launches_per_frame": per_frame[name],
+                     "cuda_launches_per_call": per_call,
+                     "profiled_launches_per_call": recorded,
+                     "serial_steps": serial, "bytes": byt, "ops": ops})
 
     dims = (80, 45)
     n_diag = len(anti_diagonals(*dims))
@@ -293,9 +409,24 @@ def main() -> int:
     time_kernel("deblock_raster", deblock_frame_cuda_from_bs,
                 deblock_raster_plain, args, dims,
                 deblock_bound(args, dims), dims[0] * dims[1], 3)
+    # 1080p, 4 reference slots, 6% of the MBs with motion exceptions in
+    # all four quads (the share pallas_mc.py:10-14 names)
+    dims = (120, 68)
+    case = kc.mc_case(15, *dims, 4, 0.06)
+    args = kc.mc_inputs(case, dev)
+    time_kernel("mc_uniform", mc_uniform_cuda, mc_uniform_plain, args[:5],
+                dims, mc_uniform_bound(args, dims), 1, 5)
+    n_exc = case["n_exc"]
+    args = mc_uniform_plain(*args[:5], *dims) + args
+    time_kernel("mc_exception",
+                lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
+                lambda *a: mc_exception_plain(*a, n_exc=n_exc), args, dims,
+                mc_exception_bound(args, dims, n_exc), 1, 5)
     emit({"phase": "timing", "gpu": smi,
-          "kernels": [{k: r[k] for k in ("name", "dims", "ms", "plain_ms",
-                                         "cuda_launches_per_call")}
+          "kernels": [{k: r[k] for k in ("name", "dims", "ms", "event_ms",
+                                         "plain_ms", "bound_ms",
+                                         "cuda_launches_per_call",
+                                         "launches_per_frame")}
                       for r in rows]})
 
     print(json.dumps({"kernels": rows}), flush=True)

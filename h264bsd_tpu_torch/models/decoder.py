@@ -7,10 +7,11 @@ RGBA/BGRA/YCbCrA. The bitstream front-end runs in C++ (frontend/); the
 pixel stages run on the device, one frame at a time, into a DPB ring
 written in place (unpack -> reconstruct -> conceal -> deblock -> slot).
 
-Scope of this version: pictures that reference no DPB slot (intra
-pictures, whole-picture concealment). A picture that needs motion
-compensation, a partial loss that needs the host spiral concealment, and
-SEI decoding raise NotImplementedError.
+I and P pictures decode, with motion compensation from up to 16
+reference slots, whole-picture and partial-loss concealment (a partial
+loss without a usable reference takes the reference's spiral
+concealment on the host, ops/conceal.py). SEI decoding
+(take_sei_messages) raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import torch
 
 from ..device import resolve_device
 from ..frontend import binding as fe
+from ..ops.conceal import conceal_picture
 from ..ops.cuda_deblock_wf import deblock_frame_wavefront
 from ..ops.reconstruct import build_pcm_tensors, reconstruct_frame_fast
 from ..ops.unpack import blob_words, compact_blob_words, unpack_blob
@@ -77,38 +79,52 @@ PARAM_SET_ERROR = fe.PARAM_SET_ERROR
 
 def _frame_decode_body(words, header, dpb, pcm, slot, conceal_from_ref,
                        conceal_ref_slot, width_mbs, height_mbs, caps,
-                       intra_wavefront):
-    """One full frame on the device: unpack, reconstruct, conceal,
-    deblock, store into ring slot `slot` (in place)."""
+                       intra_wavefront, has_inter=True, n_exc=None,
+                       spiral_decoded=None):
+    """One full frame on the device: unpack, reconstruct (motion
+    compensation from the ring `dpb`), conceal, deblock, store into ring
+    slot `slot` (in place). spiral_decoded, a numpy (nMB,) bool of the
+    decoded MBs, selects the exact spiral concealment on the host for a
+    partial loss without a usable reference."""
     n_mbs = width_mbs * height_mbs
     (packed, slice_table, sparse_ids, sparse_levels, mv_exc_ids,
      mv_exc_payload, intra_mbs, intra_payload, slice_ids) = unpack_blob(
         words, n_mbs, *caps, header=header)
     y, cb, cr, t = reconstruct_frame_fast(
         packed, slice_table, sparse_ids, sparse_levels, mv_exc_ids,
-        mv_exc_payload, intra_mbs, intra_payload, pcm, width_mbs,
-        height_mbs, intra_wavefront, slice_ids)
+        mv_exc_payload, intra_mbs, intra_payload, pcm, dpb, width_mbs,
+        height_mbs, intra_wavefront, slice_ids, has_inter, n_exc)
 
-    # concealment of lost MBs (mb_class 6): a copy of the co-located MB of
-    # the first available reference (ConcealMb conceal.c:318-338), or a
-    # grey fill (conceal.c:172-199). Written straight into the ring slot,
-    # in place (no per-frame ring copy), which then holds the picture
-    # through deblocking; the reference slot is another picture, so it is
-    # never the slot written. Because the ring is overwritten in place,
-    # Decoder._make_output copies a picture's planes out of its slot
-    # before the next frame is submitted.
-    dpb_y, dpb_cb, dpb_cr = dpb
-    concealed = (t["mb_class"] == 6).reshape(height_mbs, width_mbs)
-    from_ref = conceal_from_ref and conceal_ref_slot >= 0
-    planes = []
-    for plane, ring, size in ((y, dpb_y, 16), (cb, dpb_cb, 8),
-                              (cr, dpb_cr, 8)):
-        mask = concealed.repeat_interleave(size, 0) \
-            .repeat_interleave(size, 1)
-        rep = ring[conceal_ref_slot] if from_ref else plane.new_full((), 128)
-        out = ring[slot]
-        torch.where(mask, rep, plane, out=out)
-        planes.append(out)
+    # concealment of lost MBs (mb_class 6). The picture is written straight
+    # into the ring slot, in place (no per-frame ring copy), which then
+    # holds it through deblocking; motion compensation above and the
+    # concealment reference read other slots, never the slot written.
+    # Because the ring is overwritten in place, Decoder._make_output
+    # copies a picture's planes out of its slot before the next frame is
+    # submitted.
+    planes = [ring[slot] for ring in dpb]
+    if spiral_decoded is not None:
+        # the reference's sequential neighbour-DC synthesis (conceal.c:
+        # 124-254), in numpy on the host between reconstruction and
+        # deblocking, as the JAX package's _recon_only_step and
+        # _deblock_store_step do
+        host = [p.cpu().numpy().copy() for p in (y, cb, cr)]
+        conceal_picture(*host, spiral_decoded, width_mbs, height_mbs,
+                        conceal_from_ref, None)
+        for out, h in zip(planes, host):
+            out.copy_(torch.from_numpy(h))
+    else:
+        # a copy of the co-located MB of the first available reference
+        # (ConcealMb conceal.c:318-338), or a grey fill (conceal.c:172-199)
+        concealed = (t["mb_class"] == 6).reshape(height_mbs, width_mbs)
+        from_ref = conceal_from_ref and conceal_ref_slot >= 0
+        for plane, ring, out, size in zip((y, cb, cr), dpb, planes,
+                                          (16, 8, 8)):
+            mask = concealed.repeat_interleave(size, 0) \
+                .repeat_interleave(size, 1)
+            rep = ring[conceal_ref_slot] if from_ref \
+                else plane.new_full((), 128)
+            torch.where(mask, rep, plane, out=out)
 
     deblock_frame_wavefront(
         *planes, t["mb_class"], t["nnz"], t["mv"], t["ref_slot"],
@@ -268,23 +284,13 @@ class Decoder:
         blob = self._fe.blob_compact(*caps, total_w * 4)
         return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
                     n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
-                    ipcm=self._fe.ipcm(), non_existing=non_existing)
+                    n_exc=counts[4], ipcm=self._fe.ipcm(),
+                    non_existing=non_existing)
 
     def _submit(self, prep):
         """Device half: transfer the blob and run the frame step."""
         info = prep["info"]
         n_mbs = prep["n_mbs"]
-        if info["used_slot_count"] > 0:
-            raise NotImplementedError(
-                "this picture references DPB slots: motion compensation "
-                "(P pictures) comes with the next slice of the port")
-        n_conc = info["num_concealed_mbs"]
-        if 0 < n_conc < n_mbs and (not info["conceal_from_ref"]
-                                   or info["conceal_ref_slot"] < 0):
-            raise NotImplementedError(
-                "partial loss without a usable reference needs the host "
-                "spiral concealment, which comes with the error-path slice "
-                "of the port")
         self._ensure_dpb(prep["geom"])
         dev = self.device
 
@@ -300,11 +306,25 @@ class Decoder:
             pcm = tuple(torch.from_numpy(p).to(dev) for p in
                         build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data))
         blob = prep["blob"]
+        # a partial loss without a usable reference needs the exact spiral
+        # concealment (host); a partial loss with one and the whole-picture
+        # cases stay on the device (both exact)
+        n_conc = info["num_concealed_mbs"]
+        spiral = None
+        if 0 < n_conc < n_mbs and (not info["conceal_from_ref"]
+                                   or info["conceal_ref_slot"] < 0):
+            # decoded MBs from the frame's own blob (the parser may already
+            # be ahead on the producer thread): packed records, 8 B/MB,
+            # follow the 64-byte header; mb_class is byte 1's low 3 bits
+            mb_class = blob[64:64 + n_mbs * 8].reshape(n_mbs, 8)[:, 1] & 7
+            spiral = mb_class != 6
         _frame_decode_body(
             blob_words(blob, dev), blob[:64].view(np.uint32).tolist(),
             self._dpb, pcm, info["slot"], bool(info["conceal_from_ref"]),
             info["conceal_ref_slot"], prep["w_mbs"], prep["h_mbs"],
-            prep["caps"], prep["wavefront"])
+            prep["caps"], prep["wavefront"],
+            has_inter=info["used_slot_count"] > 0, n_exc=prep["n_exc"],
+            spiral_decoded=spiral)
 
     # -- output ------------------------------------------------------------
 

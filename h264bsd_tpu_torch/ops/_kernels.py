@@ -46,6 +46,8 @@ ENTRY = {
                         [_P] * 13 + [_I, _I, _I, _P]),
     "h264_intra_wavefront": ("intra_wf", "intra_wf",
                              [_P] * 12 + [_I, _I, _P]),
+    "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),
+    "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 4 + [_P]),
 }
 
 # wrapper calls that launched each kernel (reset_launches() zeroes them)

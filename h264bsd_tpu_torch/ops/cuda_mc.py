@@ -1,0 +1,147 @@
+"""Motion-compensation kernels (K3+K4, K5+K6): wrapper and plain versions.
+
+Counterpart of the JAX package's ops/pallas_mc.py (mc_predict_grids :409,
+_mc_predict_group :457). The kernels are in csrc/mc.cu:
+mc_uniform_kernel predicts every MB whole with block 0's MV and slot (the
+TPU's _uniform_luma_kernel and _uniform_chroma_kernel), then
+mc_exception_kernel predicts the listed 8x8 quads block by block (the
+TPU's _exc_luma_kernel and _exc_chroma_kernel) and writes them over the
+uniform result. Both read the DPB ring in place, each block from its own
+slot, so there is no padded copy of the referenced slots and no pass per
+group of slots (pallas_mc.py:406-454 has no counterpart).
+
+The plain versions are built from ops/inter.py, the CPU path and oracle.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _kernels
+from .inter import block_positions, inter_predict_frame, predict_blocks
+
+# raster blocks of each 8x8 quadrant (front-end kQuadBlocks)
+QUAD_BLOCKS = ((0, 1, 4, 5), (2, 3, 6, 7), (8, 9, 12, 13), (10, 11, 14, 15))
+
+
+def mc_uniform_plain(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
+                     height_mbs):
+    """Every MB predicted whole with block 0's MV and slot: ops.inter with
+    that MV and slot on all 16 blocks. Returns u8 (nMB,16,16), (nMB,8,8),
+    (nMB,8,8)."""
+    return tuple(g.to(torch.uint8) for g in inter_predict_frame(
+        dpb_y, dpb_cb, dpb_cr, mv[:, :1].expand(-1, 16, -1),
+        ref_slot[:, :1].expand(-1, 16), width_mbs, height_mbs))
+
+
+def mc_exception_plain(grid_y, grid_cb, grid_cr, dpb_y, dpb_cb, dpb_cr, mv,
+                       ref_slot, exc_ids, width_mbs, height_mbs, n_exc=None):
+    """Predict the listed quads (ids mb*4 + q; ids >= nMB*4 are padding;
+    only the first n_exc entries when given) block by block through
+    ops.inter and write them over the grids, in place. Returns the
+    grids."""
+    n_mb = width_mbs * height_mbs
+    dev = dpb_y.device
+    ids = exc_ids.reshape(-1).long()
+    if n_exc is not None:
+        ids = ids[:n_exc]
+    ids = ids[(ids >= 0) & (ids < n_mb * 4)]
+    mb = ids // 4
+    quad = torch.as_tensor(QUAD_BLOCKS, device=dev)[ids % 4]   # (k, 4)
+    mbb = mb[:, None].expand(-1, 4).reshape(-1)
+    b = quad.reshape(-1)
+    bx, by = block_positions(mbb, b, width_mbs, dev)
+    m = mv.long()[mbb, b]
+    pred, pcb, pcr = predict_blocks(dpb_y, dpb_cb, dpb_cr, bx, by, m[:, 0],
+                                    m[:, 1], ref_slot.long()[mbb, b])
+    # each block's pels at their place in the MB grid
+    r4 = torch.arange(4, device=dev)
+    r2 = torch.arange(2, device=dev)
+    rows = (b // 4 * 4)[:, None, None] + r4[None, :, None]
+    cols = (b % 4 * 4)[:, None, None] + r4[None, None, :]
+    grid_y[mbb[:, None, None], rows, cols] = pred.to(torch.uint8)
+    rows = (b // 4 * 2)[:, None, None] + r2[None, :, None]
+    cols = (b % 4 * 2)[:, None, None] + r2[None, None, :]
+    grid_cb[mbb[:, None, None], rows, cols] = pcb.to(torch.uint8)
+    grid_cr[mbb[:, None, None], rows, cols] = pcr.to(torch.uint8)
+    return grid_y, grid_cb, grid_cr
+
+
+def _mc_args(dpb_y, dpb_cb, dpb_cr, mv32, ref32, grids, width_mbs,
+             height_mbs):
+    n = width_mbs * height_mbs
+    H, W = 16 * height_mbs, 16 * width_mbs
+    s = dpb_y.shape[0]
+    u8, i32 = torch.uint8, torch.int32
+    return [_kernels.ptr(dpb_y, u8, (s, H, W), "dpb_y"),
+            _kernels.ptr(dpb_cb, u8, (s, H // 2, W // 2), "dpb_cb"),
+            _kernels.ptr(dpb_cr, u8, (s, H // 2, W // 2), "dpb_cr"),
+            _kernels.ptr(mv32, i32, (n, 16, 2), "mv"),
+            _kernels.ptr(ref32, i32, (n, 16), "ref_slot"),
+            _kernels.ptr(grids[0], u8, (n, 16, 16), "pred_y"),
+            _kernels.ptr(grids[1], u8, (n, 8, 8), "pred_cb"),
+            _kernels.ptr(grids[2], u8, (n, 8, 8), "pred_cr")]
+
+
+def mc_uniform_cuda(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
+                    height_mbs):
+    """K3+K4: the uniform prediction of every MB (see mc_uniform_plain).
+    CPU tensors run the plain version."""
+    if dpb_y.device.type == "cpu":
+        return mc_uniform_plain(dpb_y, dpb_cb, dpb_cr, mv, ref_slot,
+                                width_mbs, height_mbs)
+    n = width_mbs * height_mbs
+    dev = dpb_y.device
+    # int16 MVs / int8 slots from unpack_meta, widened to contiguous int32;
+    # the copies stay alive until the launch has been enqueued
+    mv32 = mv.to(torch.int32).contiguous()
+    ref32 = ref_slot.to(torch.int32).contiguous()
+    grids = (torch.empty((n, 16, 16), dtype=torch.uint8, device=dev),
+             torch.empty((n, 8, 8), dtype=torch.uint8, device=dev),
+             torch.empty((n, 8, 8), dtype=torch.uint8, device=dev))
+    _kernels.launch("h264_mc_uniform", dev,
+                    *_mc_args(dpb_y, dpb_cb, dpb_cr, mv32, ref32, grids,
+                              width_mbs, height_mbs),
+                    dpb_y.shape[0], width_mbs, height_mbs)
+    return grids
+
+
+def mc_exception_cuda(grid_y, grid_cb, grid_cr, dpb_y, dpb_cb, dpb_cr, mv,
+                      ref_slot, exc_ids, width_mbs, height_mbs, n_exc=None):
+    """K5+K6: the listed quads over the grids, in place (see
+    mc_exception_plain); one thread block per entry of the first n_exc
+    (all when None), no launch when there is none. CPU tensors run the
+    plain version."""
+    if dpb_y.device.type == "cpu":
+        return mc_exception_plain(grid_y, grid_cb, grid_cr, dpb_y, dpb_cb,
+                                  dpb_cr, mv, ref_slot, exc_ids, width_mbs,
+                                  height_mbs, n_exc)
+    ids = exc_ids.reshape(-1).to(torch.int32).contiguous()
+    n = ids.shape[0] if n_exc is None else min(int(n_exc), ids.shape[0])
+    if n == 0:
+        return grid_y, grid_cb, grid_cr
+    dev = dpb_y.device
+    mv32 = mv.to(torch.int32).contiguous()
+    ref32 = ref_slot.to(torch.int32).contiguous()
+    args = _mc_args(dpb_y, dpb_cb, dpb_cr, mv32, ref32,
+                    (grid_y, grid_cb, grid_cr), width_mbs, height_mbs)
+    _kernels.launch("h264_mc_exception", dev, *args,
+                    _kernels.ptr(ids, torch.int32, ids.shape, "exc_ids"), n,
+                    dpb_y.shape[0], width_mbs, height_mbs)
+    return grid_y, grid_cb, grid_cr
+
+
+def mc_predict_grids(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, exc_ids,
+                     width_mbs, height_mbs, n_exc=None):
+    """Motion compensation of the whole frame.
+
+    dpb_*: the DPB ring (slots, H, W) / (slots, H/2, W/2) uint8; mv:
+    (nMB, 16, 2) quarter-pel; ref_slot: (nMB, 16) (negative reads slot
+    0); exc_ids: quad-grained exception ids mb*4 + q, padded with ids >=
+    nMB*4; n_exc: the real entries at the head of exc_ids, when the
+    caller knows it (no launch for 0). Returns u8 grids (nMB,16,16),
+    (nMB,8,8), (nMB,8,8), meaningful for inter MBs."""
+    grids = mc_uniform_cuda(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
+                            height_mbs)
+    return mc_exception_cuda(*grids, dpb_y, dpb_cb, dpb_cr, mv, ref_slot,
+                             exc_ids, width_mbs, height_mbs, n_exc)

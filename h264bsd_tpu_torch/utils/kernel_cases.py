@@ -1,10 +1,11 @@
-"""Seeded random inputs for the deblocking and intra kernels.
+"""Seeded random inputs for the deblocking, intra and MC kernels.
 
-The generators draw, with numpy and in the same order, the inputs of the
-JAX package's kernel parity tests (tests/test_pallas_deblock.py and
-_gen_case of tests/test_pallas_intra.py), so one seed gives both packages
-the same arrays. chip_smoke.py and the tests hold each CUDA kernel
-against its plain version on them.
+The deblocking and intra generators draw, with numpy and in the same
+order, the inputs of the JAX package's kernel parity tests
+(tests/test_pallas_deblock.py and _gen_case of
+tests/test_pallas_intra.py), so one seed gives both packages the same
+arrays. chip_smoke.py and the tests hold each CUDA kernel against its
+plain version on them.
 """
 
 from __future__ import annotations
@@ -117,3 +118,75 @@ def padded_intra_ids(case, pad, device) -> torch.Tensor:
     ids = np.flatnonzero((mb_class == 3) | (mb_class == 4))
     ids = np.concatenate([ids, np.full(pad, n)]).astype(np.int32)
     return torch.from_numpy(ids).to(device)
+
+
+# quarter-pel MV limits of the front-end's mv_in_range (mbparse.cpp:187-190)
+MV_MIN_X, MV_MAX_X, MV_MIN_Y, MV_MAX_Y = -8192, 8191, -2048, 2047
+MV_NEAR = 80     # |MV| of the near MVs, quarter pels
+
+
+def mc_case(seed, w_mbs, h_mbs, n_slots, exc_share) -> dict:
+    """Random DPB ring and motion of a frame for the MC kernels.
+
+    Each MB has one MV and slot (block 0's), within +-MV_NEAR quarter
+    pels, or, for a tenth of the MBs and one uniform MB per frame side,
+    far outside the frame up to the front-end's MV limits; a twentieth
+    have slot -1 (an intra MB: reads slot 0). A share exc_share of the MBs
+    carry their own MV and slot in every 4x4 block and list all four of
+    their quads in exc_ids (mb*4 + q, ascending), which is padded to
+    about 1.5x its length with ids >= nMB*4, as the blob ladder pads it.
+    The low three MV bits run through all 64 (x, y) combinations over
+    the uniform MBs and the exception blocks in turn, so with 64 or more
+    of them every luma fractional case and chroma weight occurs. mv is
+    int16 and ref_slot int8, as unpack_meta returns them."""
+    rng = np.random.default_rng(seed)
+    n = w_mbs * h_mbs
+    H, W = h_mbs * 16, w_mbs * 16
+    ring = dict(
+        dpb_y=rng.integers(0, 256, (n_slots, H, W), dtype=np.uint8),
+        dpb_cb=rng.integers(0, 256, (n_slots, H // 2, W // 2),
+                            dtype=np.uint8),
+        dpb_cr=rng.integers(0, 256, (n_slots, H // 2, W // 2),
+                            dtype=np.uint8))
+    mv = np.zeros((n, 16, 2), np.int32)
+    mv[:] = rng.integers(-MV_NEAR, MV_NEAR + 1, (n, 1, 2))
+    far = rng.random(n) < 0.1
+    mv[far, :, 0] = rng.integers(MV_MIN_X, MV_MAX_X + 1, (far.sum(), 1))
+    mv[far, :, 1] = rng.integers(MV_MIN_Y, MV_MAX_Y + 1, (far.sum(), 1))
+    ref_slot = np.repeat(rng.integers(0, n_slots, (n, 1)), 16, axis=1)
+    ref_slot[rng.random(n) < 0.05] = -1
+
+    is_exc = rng.random(n) < exc_share
+    exc = np.flatnonzero(is_exc)
+    mv[exc] = rng.integers(-MV_NEAR, MV_NEAR + 1, (len(exc), 16, 2))
+    ref_slot[exc] = rng.integers(0, n_slots, (len(exc), 16))
+    # fully outside on each side (left, right, top, bottom): uniform MBs
+    for mb, (x, y) in zip(rng.permutation(np.flatnonzero(~is_exc))[:4],
+                          [(MV_MIN_X, 0), (MV_MAX_X, 0), (0, MV_MIN_Y),
+                           (0, MV_MAX_Y)]):
+        mv[mb] = (x, y)
+    # the 64 low-bit combinations, over the uniform MBs and the exception
+    # blocks in MB order; & ~7 keeps every MV inside the limits
+    units = [(mb, b) for mb in range(n)
+             for b in (range(16) if is_exc[mb] else [slice(None)])]
+    for k, (mb, b) in enumerate(units):
+        mv[mb, b, 0] = (mv[mb, b, 0] & ~7) | (k & 7)
+        mv[mb, b, 1] = (mv[mb, b, 1] & ~7) | ((k >> 3) & 7)
+
+    ids = (exc[:, None] * 4 + np.arange(4)[None, :]).reshape(-1)
+    pad = len(ids) // 2 + 1
+    exc_ids = np.concatenate([ids, n * 4 + rng.integers(0, 8, pad)])
+    return dict(**ring, mv=mv.astype(np.int16),
+                ref_slot=ref_slot.astype(np.int8),
+                exc_ids=exc_ids.astype(np.int32), n_exc=len(ids))
+
+
+MC_STATE = ("dpb_y", "dpb_cb", "dpb_cr", "mv", "ref_slot", "exc_ids")
+
+
+def mc_inputs(case, device):
+    """(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, exc_ids) on `device`: the
+    leading arguments of mc_predict_grids (width_mbs, height_mbs and
+    n_exc follow)."""
+    t = from_numpy(case, device)
+    return tuple(t[k] for k in MC_STATE)

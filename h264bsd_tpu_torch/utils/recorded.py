@@ -1,0 +1,38 @@
+"""The streams whose per-picture checksums the port is held to.
+
+testdata/reference_checksums.json (written by
+tools/record_torch_port_checksums.py from the JAX package's decodes)
+names each stream by its generator: a function of utils/streamgen.py or
+utils/motion_stream.py, its arguments and, for a loss case, the NAL unit
+removed from the generated bytes. make_recorded_stream regenerates it
+here with the port's own modules.
+"""
+
+from __future__ import annotations
+
+from . import motion_stream, streamgen
+
+MODULES = {"streamgen": streamgen, "motion_stream": motion_stream}
+
+
+def drop_nal(data: bytes, k: int) -> bytes:
+    """The stream without its k-th NAL unit (0 is the first, the SPS of a
+    streamgen stream), as a packet lost in transit."""
+    starts = []
+    at = data.find(b"\x00\x00\x00\x01")
+    while at >= 0:
+        starts.append(at)
+        at = data.find(b"\x00\x00\x00\x01", at + 4)
+    starts.append(len(data))
+    return data[:starts[k]] + data[starts[k + 1]:]
+
+
+def make_recorded_stream(entry: dict, modules: dict = MODULES) -> bytes:
+    """The bytes of a reference_checksums.json entry: {"maker", "args",
+    optional "module" (default "streamgen"), "kwargs", "drop_nal"}.
+    `modules` maps module names to the modules that generate them."""
+    fn = getattr(modules[entry.get("module", "streamgen")], entry["maker"])
+    data = fn(*entry["args"], **entry.get("kwargs", {}))
+    if "drop_nal" in entry:
+        data = drop_nal(data, entry["drop_nal"])
+    return data

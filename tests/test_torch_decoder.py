@@ -1,7 +1,7 @@
 """The PyTorch port's decoder, on the CPU, against the JAX package's:
 byte-identical pictures on all-intra streams, the same colour
-conversions and metadata, the slice's scope limits, and device
-resolution."""
+conversions and metadata, the scope limit (SEI), and device
+resolution. P streams and partial losses: tests/test_torch_p_decode.py."""
 
 import hashlib
 import json
@@ -122,11 +122,6 @@ def test_whole_picture_loss_concealment_matches_jax(intra_concealment):
     assert outs[tdec] == outs[jdec]
 
 
-def test_p_pictures_raise_not_implemented():
-    with pytest.raises(NotImplementedError, match="motion compensation"):
-        list(tdec.decode_stream(streamgen.make_ippp_stream(), device="cpu"))
-
-
 def test_sei_raises_not_implemented():
     with pytest.raises(NotImplementedError, match="SEI"):
         tdec.Decoder(device="cpu").take_sei_messages()
@@ -143,14 +138,15 @@ def test_no_device_and_no_cuda_raises(monkeypatch):
 RECORDED = ROOT / "h264bsd_tpu_torch" / "testdata" / "reference_checksums.json"
 
 
-@pytest.mark.parametrize("name", ["lowqp_i", "intra_2x4"])
+@pytest.mark.parametrize("name", ["lowqp_i", "intra_2x4", "motion_6x4",
+                                  "loss_idr_slice"])
 def test_recorded_checksums_hold_on_cpu(name):
     """The port's plain versions reproduce the recorded JAX checksums that
     chip_smoke.py holds the card to (small entries; the others decode in
     chip_smoke.py and in the slow re-recording test)."""
-    from h264bsd_tpu_torch.utils import streamgen as port_streamgen
+    from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
     e = json.loads(RECORDED.read_text())[name]
-    data = getattr(port_streamgen, e["maker"])(*e["args"])
+    data = make_recorded_stream(e)
     assert hashlib.sha256(data).hexdigest() == e["sha256"]
     got = [tdec.frame_checksum_host(p.yuv_bytes())
            for p in tdec.decode_stream(data, device="cpu")]

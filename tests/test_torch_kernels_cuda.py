@@ -20,10 +20,14 @@ from h264bsd_tpu_torch.ops.cuda_deblock_wf import (
 from h264bsd_tpu_torch.ops.cuda_intra import intra_pass_cuda
 from h264bsd_tpu_torch.ops.cuda_intra_wf import (intra_pass_wavefront_cuda,
                                                  intra_pass_wavefront_plain)
+from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
+                                           mc_exception_plain,
+                                           mc_uniform_cuda, mc_uniform_plain)
 from h264bsd_tpu_torch.ops.intra import intra_pass_list
 from h264bsd_tpu_torch.utils.kernel_cases import (deblock_case,
                                                   deblock_inputs, intra_case,
-                                                  intra_inputs,
+                                                  intra_inputs, mc_case,
+                                                  mc_inputs,
                                                   padded_intra_ids)
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +113,48 @@ def test_narrow_frames_go_to_the_raster_kernels(dev):
     assert after["deblock_raster"] == before["deblock_raster"] + 1
     assert after["intra_wf"] == before["intra_wf"]
     assert after["deblock_wf"] == before["deblock_wf"]
+
+
+# (seed, dims, slots): the decode tests' size, a mid size and 1080p, with
+# 1, 4 and 16 reference slots
+MC_CASES = [(0, (6, 4), 1), (1, (20, 12), 4), (2, (120, 68), 16)]
+
+
+@pytest.mark.parametrize("seed,dims,n_slots", MC_CASES)
+def test_mc_uniform_kernel(dev, seed, dims, n_slots):
+    args = mc_inputs(mc_case(seed, *dims, n_slots, 0.25), dev)[:5]
+    before = _kernels.LAUNCHES["mc_uniform"]
+    got = mc_uniform_cuda(*args, *dims)
+    want = mc_uniform_plain(*args, *dims)
+    _assert_planes_equal(got, want)
+    assert _kernels.LAUNCHES["mc_uniform"] == before + 1
+
+
+@pytest.mark.parametrize("seed,dims,n_slots", MC_CASES)
+@pytest.mark.parametrize("known_count", [True, False])
+def test_mc_exception_kernel(dev, seed, dims, n_slots, known_count):
+    """Over the uniform grids; without the count the kernel also walks
+    the padding entries of exc_ids, which must leave the grids alone."""
+    case = mc_case(seed, *dims, n_slots, 0.25)
+    args = mc_inputs(case, dev)
+    n_exc = case["n_exc"] if known_count else None
+    grids = mc_uniform_plain(*args[:5], *dims)
+    before = _kernels.LAUNCHES["mc_exception"]
+    got = mc_exception_cuda(*(g.clone() for g in grids), *args, *dims,
+                            n_exc=n_exc)
+    want = mc_exception_plain(*(g.clone() for g in grids), *args, *dims,
+                              n_exc=n_exc)
+    _assert_planes_equal(got, want)
+    assert _kernels.LAUNCHES["mc_exception"] == before + 1
+
+
+def test_mc_exception_kernel_without_entries_does_not_launch(dev):
+    case = mc_case(3, 6, 4, 2, 0.0)
+    args = mc_inputs(case, dev)
+    grids = mc_uniform_plain(*args[:5], 6, 4)
+    before = _kernels.LAUNCHES["mc_exception"]
+    got = mc_exception_cuda(*(g.clone() for g in grids), *args, 6, 4,
+                            n_exc=case["n_exc"])
+    _assert_planes_equal(got, grids)
+    assert case["n_exc"] == 0
+    assert _kernels.LAUNCHES["mc_exception"] == before

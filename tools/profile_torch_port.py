@@ -1,8 +1,11 @@
 #!/usr/bin/env python3
-"""Where the time of the PyTorch port's all-intra decode goes, on one GPU.
+"""Where the time of the PyTorch port's decode goes, on one GPU.
 
-Decodes make_intra_stress_stream(W, H, N) with h264bsd_tpu_torch and
-prints one JSON line per geometry with:
+Decodes, with h264bsd_tpu_torch, per geometry [KIND:]WxHxN one of
+  intra   make_intra_stress_stream(W, H, N)   (all-I; the default)
+  ippp    make_ippp_stream(W, H, N)           (I then zero-motion P)
+  motion  make_motion_stream(W, H, N, seed=0) (I then P with real motion)
+and prints one JSON line per geometry with:
   host_ms_per_frame     the C++ front-end parse plus the host half of a
                         frame (Decoder._prepare), with no device work;
   e2e_ms_per_frame      decode_stream, pipelined and not, warm, ending
@@ -12,9 +15,10 @@ prints one JSON line per geometry with:
                         pass: the union of the CUDA activity intervals
                         (kernels, copies, memsets) over the wall time;
   kernels               device time and calls per frame by kernel name,
-                        the port's four CUDA kernels and the rest (the
+                        the port's CUDA kernels and the rest (the
                         PyTorch glue: unpack, transform, bS, copies).
-Usage: python3 tools/profile_torch_port.py [--geometry 80x45x16 ...]
+Usage: python3 tools/profile_torch_port.py \
+           [--geometry 80x45x16 ippp:120x68x8 motion:120x68x5 ...]
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ sys.path.insert(0, str(Path(__file__).parents[1]))
 import torch  # noqa: E402
 
 OURS = ("intra_wf_kernel", "intra_list_kernel", "deblock_wf_kernel",
-        "deblock_raster_kernel")
+        "deblock_raster_kernel", "mc_uniform_kernel", "mc_exception_kernel")
 
 
 def busy_us(intervals):
@@ -48,12 +52,26 @@ def busy_us(intervals):
     return total
 
 
-def profile(w, h, n):
+def make_stream(kind, w, h, n):
+    """(call, bytes) of the stream of `kind` at W x H MBs, N frames."""
+    from h264bsd_tpu_torch.utils import motion_stream, streamgen
+    if kind == "intra":
+        return (f"make_intra_stress_stream({w}, {h}, {n})",
+                streamgen.make_intra_stress_stream(w, h, n))
+    if kind == "ippp":
+        return (f"make_ippp_stream({w}, {h}, {n})",
+                streamgen.make_ippp_stream(w, h, n))
+    if kind == "motion":
+        return (f"make_motion_stream({w}, {h}, {n}, seed=0)",
+                motion_stream.make_motion_stream(w, h, n, seed=0))
+    raise ValueError(f"unknown stream kind {kind!r}")
+
+
+def profile(kind, w, h, n):
     from h264bsd_tpu_torch.frontend import binding as fe
     from h264bsd_tpu_torch.models.decoder import Decoder, decode_stream
-    from h264bsd_tpu_torch.utils.streamgen import make_intra_stress_stream
 
-    data = make_intra_stress_stream(w, h, n)
+    call, data = make_stream(kind, w, h, n)
 
     # host half alone: parse + _prepare, no device work
     dec = Decoder(device="cuda")
@@ -100,7 +118,7 @@ def profile(w, h, n):
                   key=lambda r: -r["ms_per_frame"])
     ours = [r for r in rows if r["name"] in OURS]
     glue = [r for r in rows if r["name"] not in OURS]
-    return {"stream": f"make_intra_stress_stream({w}, {h}, {n})",
+    return {"stream": call,
             "frames": k, "host_ms_per_frame": host_ms,
             "e2e_ms_per_frame_pipelined": piped,
             "e2e_ms_per_frame_unpipelined": unpiped,
@@ -116,7 +134,8 @@ def profile(w, h, n):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--geometry", nargs="+", default=["80x45x16"],
-                    help="WxHxN: width and height in MBs, frames")
+                    help="[KIND:]WxHxN: stream kind (intra, ippp, motion), "
+                    "width and height in MBs, frames")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         sys.exit("profile_torch_port: no CUDA device")
@@ -124,8 +143,10 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     for geo in args.geometry:
-        w, h, n = (int(x) for x in geo.split("x"))
-        print(json.dumps({"gpu": gpu, **profile(w, h, n)}), flush=True)
+        kind, _, dims = geo.rpartition(":")
+        w, h, n = (int(x) for x in dims.split("x"))
+        print(json.dumps({"gpu": gpu, **profile(kind or "intra", w, h, n)}),
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,18 @@ Decodes each stream of STREAMS with the JAX package
 h264bsd_tpu_torch/testdata/reference_checksums.json: for every stream its
 generator call, the SHA-256 of the generated bytes and the
 frame_checksum_host of every output picture's uncropped YUV, in display
-order. chip_smoke.py regenerates the streams with the port's own copy of
-streamgen (it may not import the JAX package) and compares.
+order. The streamgen streams are generated with the JAX package's
+streamgen, the motion streams with the port's utils/motion_stream.py
+(test data of the port). chip_smoke.py regenerates every stream with the
+port's own modules (it may not import the JAX package) and compares.
 
 Usage:
-  JAX_PLATFORMS=cpu python tools/record_torch_port_checksums.py [--check]
+  JAX_PLATFORMS=cpu python tools/record_torch_port_checksums.py \
+      [--check] [--only NAME ...]
 
---check recomputes everything and exits non-zero if the file differs.
+--check recomputes and exits non-zero if the file differs; --only limits
+the work to the named entries (the 720p/1080p decodes take minutes on the
+CPU).
 """
 
 from __future__ import annotations
@@ -29,32 +34,85 @@ sys.path.insert(0, str(ROOT))
 
 OUT = ROOT / "h264bsd_tpu_torch" / "testdata" / "reference_checksums.json"
 
-# name -> (streamgen function, positional arguments)
+# frame dicts of tests/test_conformance_streams.py MULTIREF_CASES (lists
+# for JSON)
+MULTIREF = {
+    "six_ref_cycle": dict(num_ref_frames=6, frames=[
+        dict(idr=True, frame_num=0, dc=4), dict(frame_num=1, dc=5),
+        dict(frame_num=2, dc=-3), dict(frame_num=3, dc=6),
+        dict(frame_num=4, dc=-4), dict(frame_num=5, dc=7),
+        dict(frame_num=6, n_active=6, ref_cycle=6, dc=-5)]),
+    "frame_num_gap": dict(gaps_allowed=True, num_ref_frames=2, frames=[
+        dict(idr=True, frame_num=0, dc=4), dict(frame_num=1, dc=5),
+        dict(frame_num=3, n_active=2, ref_idx=1, dc=-3),
+        dict(frame_num=4, n_active=2, ref_idx=0, dc=6)]),
+    "longterm": dict(num_ref_frames=3, frames=[
+        dict(idr=True, frame_num=0, dc=4),
+        dict(frame_num=1, mmco=[[4, 1], [3, 0, 0]], dc=5),
+        dict(frame_num=2, dc=-3),
+        dict(frame_num=3, n_active=3, ref_idx=2, dc=6),
+        dict(frame_num=4, reorder=[[2, 0]], dc=-6)]),
+}
+
+# name -> entry: generator ("maker", in "module", default streamgen), its
+# "args" and "kwargs", and the NAL unit a loss case removes ("drop_nal";
+# see h264bsd_tpu_torch/utils/recorded.py)
 STREAMS = {
     # BASELINE.json config 3: all-I 720p (tools/bench_configs.py)
-    "intra_720p": ("make_intra_stress_stream", [80, 45, 6]),
-    "intra_1080p": ("make_intra_stress_stream", [120, 68, 2]),
+    "intra_720p": dict(maker="make_intra_stress_stream", args=[80, 45, 6]),
+    "intra_1080p": dict(maker="make_intra_stress_stream",
+                        args=[120, 68, 2]),
     # <= 2048 intra MBs: the list intra kernel
-    "intra_40x23": ("make_intra_stress_stream", [40, 23, 2]),
+    "intra_40x23": dict(maker="make_intra_stress_stream", args=[40, 23, 2]),
     # one MB: list intra kernel + raster deblock kernel
-    "lowqp_i": ("make_lowqp_i_stream", []),
+    "lowqp_i": dict(maker="make_lowqp_i_stream", args=[]),
     # 2 MBs wide: both hand-offs to the raster kernels
-    "intra_2x4": ("make_intra_stress_stream", [2, 4, 2]),
+    "intra_2x4": dict(maker="make_intra_stress_stream", args=[2, 4, 2]),
+    # BASELINE.json config 4's IPPP at 1080p: the uniform MC kernel
+    "ippp_1080p": dict(maker="make_ippp_stream", args=[120, 68, 8]),
+    # real motion at 1080p: both MC kernels and sparse intra (K2)
+    "motion_1080p": dict(module="motion_stream", maker="make_motion_stream",
+                         args=[120, 68, 5], kwargs=dict(seed=0)),
+    # the small P streams of tests/test_torch_p_decode.py
+    "ippp_4x4": dict(maker="make_ippp_stream", args=[4, 4, 4]),
+    **{name: dict(maker="make_multiref_stream", args=[], kwargs=kw)
+       for name, kw in MULTIREF.items()},
+    "intra_in_p": dict(maker="make_intra_in_p_stream", args=[False]),
+    "intra_in_p_constrained": dict(maker="make_intra_in_p_stream",
+                                   args=[True]),
+    "pcm": dict(maker="make_pcm_stream", args=[]),
+    "deblock_control": dict(maker="make_deblock_control_stream", args=[]),
+    "slice_groups": dict(maker="make_conformance_stream", args=[],
+                         kwargs=dict(num_slice_groups=2)),
+    "redundant": dict(maker="make_redundant_stream", args=[False]),
+    "motion_6x4": dict(module="motion_stream", maker="make_motion_stream",
+                       args=[6, 4, 4], kwargs=dict(seed=0)),
+    # partial losses: the IDR's second slice (spiral concealment on the
+    # host), the first P picture's second slice (copy on the device)
+    "loss_idr_slice": dict(maker="make_conformance_stream", args=[],
+                           kwargs=dict(slices_per_frame=2), drop_nal=3),
+    "loss_p_slice": dict(maker="make_conformance_stream", args=[],
+                         kwargs=dict(slices_per_frame=2), drop_nal=5),
 }
 
 
-def record() -> dict:
+def record(names) -> dict:
     from h264bsd_tpu.models.decoder import decode_stream, frame_checksum_host
     from h264bsd_tpu.utils import streamgen
+    from h264bsd_tpu_torch.utils import motion_stream
+    from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
 
+    # the JAX package's streamgen for its streams; the motion stream is
+    # the port's own test data
+    modules = {"streamgen": streamgen, "motion_stream": motion_stream}
     out = {}
-    for name, (fn, args) in STREAMS.items():
+    for name in names:
+        entry = STREAMS[name]
         t0 = time.perf_counter()
-        data = getattr(streamgen, fn)(*args)
+        data = make_recorded_stream(entry, modules)
         sums = [frame_checksum_host(p.yuv_bytes())
                 for p in decode_stream(data)]
-        out[name] = {"maker": fn, "args": args,
-                     "sha256": hashlib.sha256(data).hexdigest(),
+        out[name] = {**entry, "sha256": hashlib.sha256(data).hexdigest(),
                      "checksums": sums}
         print(f"{name}: {len(sums)} pictures in "
               f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
@@ -65,17 +123,23 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--check", action="store_true",
                     help="compare with the recorded file instead of writing")
+    ap.add_argument("--only", nargs="+", choices=sorted(STREAMS),
+                    help="record (or check) only these entries; the file "
+                    "keeps the others")
     args = ap.parse_args()
-    got = record()
+    got = record(args.only or list(STREAMS))
+    want = json.loads(OUT.read_text()) if OUT.exists() else {}
     if args.check:
-        want = json.loads(OUT.read_text())
-        if got != want:
+        if any(want.get(k) != v for k, v in got.items()) or \
+                (not args.only and set(want) != set(got)):
             print("reference checksums differ from the recorded file",
                   file=sys.stderr)
             sys.exit(1)
         print("reference checksums match")
         return
-    OUT.write_text(json.dumps(got, indent=1) + "\n")
+    merged = {k: got.get(k, want.get(k)) for k in STREAMS
+              if k in got or k in want}
+    OUT.write_text(json.dumps(merged, indent=1) + "\n")
     print(f"wrote {OUT}")
 
 
