@@ -3,14 +3,17 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card, decodes all-intra, P (IPPP and real motion)
-and partial-loss streams through decode_stream and checks every
-picture's checksum against the values the JAX package recorded
+PyTorch version on the card, decodes all-intra, P (IPPP and real motion),
+partial-loss and SEI streams through decode_stream, Decoder.decode and
+StreamingDecoder (windowable frames replay one CUDA graph per frame
+shape) and checks every picture's checksum, and the SEI messages,
+against the values the JAX package recorded
 (h264bsd_tpu_torch/testdata/reference_checksums.json, written by
 tools/record_torch_port_checksums.py), then times each kernel: its device
 time from torch.profiler's kernel events, the CUDA-event time of the
 wrapper call, and the plain version's time. Prints one JSON line per
-phase, then the kernel table, the card's name and power limit, and as
+phase (with the graph captures, replays and eager frames of each decode
+phase), then the kernel table, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (exit
 code != 0).
 
@@ -44,6 +47,10 @@ OPS_LUMA_LINE, OPS_CHROMA_LINE, OPS_INTRA_PEL = 40, 20, 30
 LUMA_CASE_OPS = (1, 17, 14, 17, 17, 31, 91, 31, 14, 91, 74, 91, 17, 31, 91,
                  31)
 OPS_CHROMA_PEL = 10
+# int32 operations of one K9 block: 16 dequant products, two passes of
+# four 4-point butterflies (2 shifts and 6 additions each), and the
+# rounding add and shift of 16 pels; per pel of the DC-only base, 3
+OPS_IDCT_BLOCK, OPS_DC_PEL = 16 + 64 + 32, 3
 
 KERNELS = {
     # name: (source, TPU kernel it replaces)
@@ -59,16 +66,29 @@ KERNELS = {
                    "h264bsd_tpu/ops/pallas_mc.py:174 and :226"),
     "mc_exception": ("h264bsd_tpu_torch/csrc/mc.cu",
                      "h264bsd_tpu/ops/pallas_mc.py:284 and :306"),
+    # K9 with the JAX package's signature, and K9's body as the main
+    # path's residual stage
+    "idct_blocks": ("h264bsd_tpu_torch/csrc/transform.cu",
+                    "h264bsd_tpu/ops/pallas_transform.py:64"),
+    "residual_sparse": ("h264bsd_tpu_torch/csrc/transform.cu",
+                        "h264bsd_tpu/ops/pallas_transform.py:64"),
 }
-# each kernel's CUDA function (its name in the profiler's events) and the
-# decode phase whose pictures give its launches per frame
-DEVICE_FN = {k: f"{k}_kernel" for k in KERNELS}
+# each kernel's CUDA functions (their names in the profiler's events) and
+# the decode phase whose pictures give its launches per frame
+DEVICE_FN = {k: (f"{k}_kernel",) for k in KERNELS}
+DEVICE_FN["residual_sparse"] = ("residual_dc_kernel",
+                                "residual_entries_kernel")
 PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
                    "intra_wf": "decode_720p_all_i",
                    "intra_list": "decode_1080p_motion",
                    "deblock_raster": "decode_small",
                    "mc_uniform": "decode_1080p_motion",
-                   "mc_exception": "decode_1080p_motion"}
+                   "mc_exception": "decode_1080p_motion",
+                   "idct_blocks": "decode_1080p_motion",
+                   "residual_sparse": "decode_1080p_motion"}
+# the main path runs K9's body through residual_sparse; idct_blocks is K9
+# with the TPU kernel's own signature, which no decode calls
+OFF_PATH = ("idct_blocks",)
 
 
 def emit(record):
@@ -109,25 +129,30 @@ def timed_ms(fn, args, reps):
 
 
 def device_ms(fn, args, reps, name, launches_per_call):
-    """Device time per call of kernel `name`, which launches
-    `launches_per_call` times per call: the mean duration of its
-    torch.profiler kernel events over `reps` calls on fresh copies of the
-    planes (the copies are other kernels, not counted), times the
-    launches per call. The mean, not the sum, because the profiler may
-    drop an event (it recorded 19 of 20 launches of K8 once). Returns
-    (ms, events recorded per call)."""
+    """Device time per call of kernel `name`, each of whose CUDA
+    functions launches `launches_per_call` times per call: for each, the
+    mean duration of its torch.profiler kernel events over `reps` calls on
+    fresh copies of the planes (the copies are other kernels, not
+    counted), times the launches per call, summed. The mean, not the sum,
+    because the profiler may drop an event (it recorded 19 of 20 launches
+    of K8 once). Returns (ms, events recorded per call)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         for _ in range(reps):
             fn(*planes_copy(args))
         torch.cuda.synchronize()
-    us = [e.time_range.end - e.time_range.start for e in prof.events()
-          if e.device_type == torch.autograd.DeviceType.CUDA
-          and e.name.split("(")[0] == DEVICE_FN[name]]
-    if not us:
-        raise AssertionError(f"{name}: the profiler recorded no device time")
-    return sum(us) / len(us) / 1e3 * launches_per_call, len(us) / reps
+    ms, recorded = 0.0, 0
+    for fn_name in DEVICE_FN[name]:
+        us = [e.time_range.end - e.time_range.start for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.name.split("(")[0] == fn_name]
+        if not us:
+            raise AssertionError(f"{name}: the profiler recorded no device "
+                                 f"time of {fn_name}")
+        ms += sum(us) / len(us) / 1e3 * launches_per_call
+        recorded += len(us)
+    return ms, recorded / reps
 
 
 def nbytes(tensors):
@@ -147,9 +172,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    from h264bsd_tpu_torch.frontend import binding as fe
     from h264bsd_tpu_torch.frontend import build as fe_build
-    from h264bsd_tpu_torch.models.decoder import (decode_stream,
+    from h264bsd_tpu_torch.models.decoder import (Decoder, decode_stream,
                                                   frame_checksum_host)
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.models.stream import StreamingDecoder
     from h264bsd_tpu_torch.ops import _kernels
     from h264bsd_tpu_torch.ops.cuda_deblock import (
         deblock_frame_cuda_from_bs, deblock_raster_plain)
@@ -162,8 +190,14 @@ def main() -> int:
                                                mc_exception_plain,
                                                mc_uniform_cuda,
                                                mc_uniform_plain)
+    from h264bsd_tpu_torch.ops.cuda_transform import (
+        idct_blocks, residual_planes_sparse_cuda)
     from h264bsd_tpu_torch.ops.deblock import anti_diagonals
     from h264bsd_tpu_torch.ops.intra import intra_pass_list
+    from h264bsd_tpu_torch.ops.transform import (idct_blocks_plain,
+                                                 residual_planes_sparse)
+    from h264bsd_tpu_torch.ops.unpack import (blob_words, unpack_blob,
+                                              unpack_meta)
     from h264bsd_tpu_torch.utils import kernel_cases as kc
     from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
 
@@ -234,6 +268,19 @@ def main() -> int:
                   lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
                   lambda *a: mc_exception_plain(*a, n_exc=n_exc),
                   grids + args, dims)
+    # K9 on two tiles of the TPU kernel and on 16; the residual stage at
+    # the decode tests' size, a mid size and 1080p
+    for n in (512, 8192):
+        check("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+              lambda *a: (idct_blocks_plain(*a[:4]),),
+              kc.case_inputs(kc.idct_case(n, n), kc.IDCT_STATE, dev), (n,))
+    for seed, dims in enumerate([(6, 4), (20, 12), (120, 68)]):
+        n = dims[0] * dims[1]
+        check("residual_sparse",
+              lambda *a: residual_planes_sparse_cuda(*a[:6], n),
+              lambda *a: residual_planes_sparse(*a[:6], n),
+              kc.case_inputs(kc.residual_case(seed, *dims),
+                             kc.RESIDUAL_STATE, dev), dims)
     emit({"phase": "kernels", "checks": checks,
           "launches": dict(_kernels.LAUNCHES)})
 
@@ -243,25 +290,43 @@ def main() -> int:
     launches = {k: 0 for k in KERNELS}
     per_frame = {}
 
-    def decode(name, timed):
+    def recorded_stream(name):
         e = ref[name]
         data = make_recorded_stream(e)
         if hashlib.sha256(data).hexdigest() != e["sha256"]:
             raise AssertionError(f"{name}: stream bytes differ from the "
                                  "recorded stream")
+        return e, data
+
+    def drive(name, pictures_of):
+        """Decode stream `name` with pictures_of(data) (an iterable of
+        OutputPicture), the counts set to 0 just before and read just
+        after; checks the checksums. Returns the record and the launch
+        counts."""
+        e, data = recorded_stream(name)
         _kernels.reset_launches()
-        sums = [frame_checksum_host(p.yuv_bytes())
-                for p in decode_stream(data)]
+        reset_stats()
+        sums = [frame_checksum_host(p.yuv_bytes()) for p in pictures_of(data)]
         counts = dict(_kernels.LAUNCHES)
+        stats = dict(STATS)
         for k, v in counts.items():
             launches[k] += v
         if sums != e["checksums"]:
             raise AssertionError(f"{name}: checksums {sums} != recorded "
                                  f"{e['checksums']}")
+        if counts["residual_sparse"] == 0:
+            raise AssertionError(f"{name}: the residual kernel never "
+                                 f"launched: {counts}")
         rec = {"stream": name, "pictures": len(sums), "checksums_ok": True,
-               "launches": counts}
+               **stats, "launches": counts}
+        return rec, counts
+
+    def decode(name, timed):
+        rec, counts = drive(name, decode_stream)
         if timed:
-            # steady state: the pass above warmed everything up
+            # a second decoder: its graphs are captured again, so this
+            # includes one capture per frame shape
+            data = recorded_stream(name)[1]
             t0 = time.perf_counter()
             n = sum(1 for _ in decode_stream(data))
             torch.cuda.synchronize()
@@ -284,6 +349,8 @@ def main() -> int:
         if not all(counts[k] > 0 for k in need):
             raise AssertionError(f"{name}: kernels {need} not all launched: "
                                  f"{counts}")
+        if name.endswith("1080p") and rec["graph_replays"] == 0:
+            raise AssertionError(f"{name}: no frame replayed a graph: {rec}")
         note_per_frame(phase, counts, rec["pictures"])
         emit({"phase": phase, **rec})
     for phase, names, need in [
@@ -302,7 +369,48 @@ def main() -> int:
                                  f"launched: {counts}")
         note_per_frame(phase, counts, sum(r["pictures"] for r, _ in runs))
         emit({"phase": phase, "streams": [r for r, _ in runs]})
-    missing = [k for k, v in launches.items() if v == 0]
+
+    # SEI NAL units before every picture, through Decoder.decode (one
+    # _decode_step per frame) and take_sei_messages
+    sei_seen = []
+
+    def decode_with_sei(data):
+        dec = Decoder()
+        pos = 0
+        while pos < len(data):
+            status, read = dec.decode(data, 0, pos)
+            pos += read
+            if status == fe.PIC_RDY:
+                while (pic := dec.next_output_picture()) is not None:
+                    yield pic
+            sei_seen.extend([m.payload_type, m.name, m.payload.hex()]
+                            for m in dec.take_sei_messages())
+            if status >= fe.ERROR and read == 0:
+                break
+
+    rec, _ = drive("sei_20x12", decode_with_sei)
+    if sei_seen != ref["sei_20x12"]["sei_messages"]:
+        raise AssertionError(f"SEI messages {sei_seen} != recorded "
+                             f"{ref['sei_20x12']['sei_messages']}")
+    emit({"phase": "decode_sei_stream", **rec, "sei_messages": len(sei_seen)})
+
+    # StreamingDecoder fed 64 KiB chunks
+    def streamed(data):
+        pics = []
+        sd = StreamingDecoder(on_picture_ready=pics.append)
+        for at in range(0, len(data), 1 << 16):
+            sd.queue_input(data[at:at + (1 << 16)])
+            sd.pump()
+        sd.end_of_stream()
+        sd.pump()
+        return pics
+
+    rec, _ = drive("stream_ippp_1080p", streamed)
+    if rec["graph_replays"] == 0:
+        raise AssertionError(f"stream_ippp_1080p: no frame replayed a "
+                             f"graph: {rec}")
+    emit({"phase": "stream_1080p_ippp", **rec})
+    missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
@@ -349,6 +457,39 @@ def main() -> int:
         # per 4x4 block: 24 pels read and written, MV and slot, its id
         byt = 2 * 24 * n_blk + 12 * n_blk + 4 * n_exc
         return byt, mc_ops(m[:, 0], m[:, 1], 16, 4 * 2)
+
+    def residual_bound(args, n):
+        ids, levels = args[0], args[1]
+        # the shipped AC blocks this frame has, and the DC-only base
+        blocks = int(((ids < n * 26) & (ids % 26 < 24)).sum())
+        byt = 4 * ids.numel() + 2 * levels.numel() + 4 * n * (2 + 24) \
+            + 4 * 384 * n
+        return byt, blocks * OPS_IDCT_BLOCK + 384 * n * OPS_DC_PEL
+
+    def frame_residual_args(name, k):
+        """The residual stage's inputs of frame k of stream `name`, as the
+        main path unpacks them on the card, and its MB count."""
+        data = recorded_stream(name)[1]
+        dec = Decoder()
+        pos = frames = 0
+        while True:
+            status, read = dec._fe.decode(data, 0, pos)
+            pos += read
+            if status == fe.PIC_RDY:
+                prep = dec._prepare()
+                while dec._fe.next_output() is not None:
+                    pass
+                if frames == k:
+                    break
+                frames += 1
+        n = prep["n_mbs"]
+        (packed, stab, sids, slv, eids, epay, iids, ipay,
+         slice_ids) = unpack_blob(blob_words(prep["blob"], dev), n,
+                                  *prep["caps"])
+        t = unpack_meta(packed, stab, eids, epay, iids, ipay, n, slice_ids,
+                        sparse_ids=sids)
+        return (sids.reshape(-1), slv, t["qp_y"], t["chroma_qp_offset"],
+                t["nnz_dc"], t["mb_class"] == 4), n
 
     rows = []
 
@@ -422,6 +563,18 @@ def main() -> int:
                 lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
                 lambda *a: mc_exception_plain(*a, n_exc=n_exc), args, dims,
                 mc_exception_bound(args, dims, n_exc), 1, 5)
+    # K9 over 16 tiles of the TPU kernel; the residual stage on the
+    # second picture (a P picture) of the 1080p motion stream
+    n = 8192
+    args = kc.case_inputs(kc.idct_case(16, n), kc.IDCT_STATE, dev)
+    time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+                lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
+                (n * (16 * 4 * 2 + 8) + n * 64, n * OPS_IDCT_BLOCK), 1, 5)
+    args, n = frame_residual_args("motion_1080p", 1)
+    time_kernel("residual_sparse",
+                lambda *a: residual_planes_sparse_cuda(*a[:6], n),
+                lambda *a: residual_planes_sparse(*a[:6], n), args,
+                (120, 68), residual_bound(args, n), 1, 5)
     emit({"phase": "timing", "gpu": smi,
           "kernels": [{k: r[k] for k in ("name", "dims", "ms", "event_ms",
                                          "plain_ms", "bound_ms",

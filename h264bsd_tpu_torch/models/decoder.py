@@ -2,16 +2,24 @@
 
 Public API mirrors the reference library surface (h264bsd_decoder.h:64-93)
 and the JAX package's models/decoder.py: decode one NAL per call, drain
-display-order output pictures, query stream geometry, convert to
-RGBA/BGRA/YCbCrA. The bitstream front-end runs in C++ (frontend/); the
-pixel stages run on the device, one frame at a time, into a DPB ring
-written in place (unpack -> reconstruct -> conceal -> deblock -> slot).
+display-order output pictures, query stream geometry, decode SEI
+messages, convert to RGBA/BGRA/YCbCrA. The bitstream front-end runs in
+C++ (frontend/); the pixel stages run on the device, one frame at a time,
+into a DPB ring written in place (unpack -> reconstruct -> conceal ->
+deblock -> slot).
 
 I and P pictures decode, with motion compensation from up to 16
 reference slots, whole-picture and partial-loss concealment (a partial
 loss without a usable reference takes the reference's spiral
-concealment on the host, ops/conceal.py). SEI decoding
-(take_sei_messages) raises NotImplementedError.
+concealment on the host, ops/conceal.py).
+
+On the card a frame's body runs as a CUDA graph captured once per frame
+shape (models/graphs.py), as the JAX package dispatches one compiled
+program per shape: _decode_step replays it for one frame, and
+_decode_window_step for a window of up to WINDOW compatible frames
+shipped in one host-to-device copy. Frames that need host work of their
+own (I_PCM samples, the spiral concealment, non-existing frame slots)
+run the body eagerly (_submit). On the CPU every frame runs eagerly.
 """
 
 from __future__ import annotations
@@ -19,22 +27,32 @@ from __future__ import annotations
 import queue
 import threading
 from dataclasses import dataclass
+from functools import partial
 
 import numpy as np
 import torch
 
 from ..device import resolve_device
 from ..frontend import binding as fe
+from ..frontend.sei import parse_sei_rbsp
 from ..ops.conceal import conceal_picture
 from ..ops.cuda_deblock_wf import deblock_frame_wavefront
 from ..ops.reconstruct import build_pcm_tensors, reconstruct_frame_fast
-from ..ops.unpack import blob_words, compact_blob_words, unpack_blob
+from ..ops.unpack import compact_blob_words, unpack_blob, widen_words
+from .graphs import STATS, FrameGraph
 from .state import new_ring, tensor_from_numpy
 
 # intra-MB count above which a frame runs the anti-diagonal wavefront
 # intra kernel (K7) instead of the list kernel (K2); the JAX package's
 # threshold, so both take the same caps and blob shapes
 WF_THRESH = 2048
+
+# frames per windowed dispatch of decode_stream, and the DPB slot margin
+# it asks of the front-end (the JAX package's default window)
+WINDOW = 16
+
+# a frame's input row: these scalars, then its blob words (int32)
+ROW_SCALARS = 3      # slot, conceal_from_ref, conceal_ref_slot
 
 
 def tier(length, tiers):
@@ -77,59 +95,67 @@ ERROR = fe.ERROR
 PARAM_SET_ERROR = fe.PARAM_SET_ERROR
 
 
-def _frame_decode_body(words, header, dpb, pcm, slot, conceal_from_ref,
-                       conceal_ref_slot, width_mbs, height_mbs, caps,
+def _frame_decode_body(row, dpb, pcm, width_mbs, height_mbs, caps,
                        intra_wavefront, has_inter=True, n_exc=None,
-                       spiral_decoded=None):
+                       spiral=None):
     """One full frame on the device: unpack, reconstruct (motion
-    compensation from the ring `dpb`), conceal, deblock, store into ring
-    slot `slot` (in place). spiral_decoded, a numpy (nMB,) bool of the
-    decoded MBs, selects the exact spiral concealment on the host for a
-    partial loss without a usable reference."""
+    compensation from the ring `dpb`), conceal, deblock, store into the
+    ring slot (in place).
+
+    row: int32 (ROW_SCALARS + blob words,) on the device, the frame's
+    slot, conceal_from_ref and conceal_ref_slot then its blob. Nothing is
+    read back to the host, so the same work serves every frame of a shape
+    (models/graphs.py captures it). n_exc: the real count of motion
+    exception quads, or None to walk the padded list. spiral, a pair
+    (numpy (nMB,) bool of the decoded MBs, conceal_from_ref), selects the
+    exact spiral concealment on the host for a partial loss without a
+    usable reference (eager frames only)."""
     n_mbs = width_mbs * height_mbs
     (packed, slice_table, sparse_ids, sparse_levels, mv_exc_ids,
      mv_exc_payload, intra_mbs, intra_payload, slice_ids) = unpack_blob(
-        words, n_mbs, *caps, header=header)
+        widen_words(row[ROW_SCALARS:]), n_mbs, *caps)
     y, cb, cr, t = reconstruct_frame_fast(
         packed, slice_table, sparse_ids, sparse_levels, mv_exc_ids,
         mv_exc_payload, intra_mbs, intra_payload, pcm, dpb, width_mbs,
         height_mbs, intra_wavefront, slice_ids, has_inter, n_exc)
 
-    # concealment of lost MBs (mb_class 6). The picture is written straight
-    # into the ring slot, in place (no per-frame ring copy), which then
-    # holds it through deblocking; motion compensation above and the
-    # concealment reference read other slots, never the slot written.
-    # Because the ring is overwritten in place, Decoder._make_output
-    # copies a picture's planes out of its slot before the next frame is
-    # submitted.
-    planes = [ring[slot] for ring in dpb]
-    if spiral_decoded is not None:
+    # concealment of lost MBs (mb_class 6); motion compensation above and
+    # the concealment reference read other ring slots, never the slot
+    # written at the end
+    if spiral is not None:
         # the reference's sequential neighbour-DC synthesis (conceal.c:
         # 124-254), in numpy on the host between reconstruction and
         # deblocking, as the JAX package's _recon_only_step and
         # _deblock_store_step do
+        decoded, from_ref = spiral
         host = [p.cpu().numpy().copy() for p in (y, cb, cr)]
-        conceal_picture(*host, spiral_decoded, width_mbs, height_mbs,
-                        conceal_from_ref, None)
-        for out, h in zip(planes, host):
-            out.copy_(torch.from_numpy(h))
+        conceal_picture(*host, decoded, width_mbs, height_mbs, from_ref,
+                        None)
+        planes = [torch.from_numpy(h).to(y.device) for h in host]
     else:
         # a copy of the co-located MB of the first available reference
         # (ConcealMb conceal.c:318-338), or a grey fill (conceal.c:172-199)
         concealed = (t["mb_class"] == 6).reshape(height_mbs, width_mbs)
-        from_ref = conceal_from_ref and conceal_ref_slot >= 0
-        for plane, ring, out, size in zip((y, cb, cr), dpb, planes,
-                                          (16, 8, 8)):
+        ref = row[2:3].long()
+        from_ref = (row[1] != 0) & (row[2] >= 0)
+        planes = []
+        for plane, ring, size in zip((y, cb, cr), dpb, (16, 8, 8)):
             mask = concealed.repeat_interleave(size, 0) \
                 .repeat_interleave(size, 1)
-            rep = ring[conceal_ref_slot] if from_ref \
-                else plane.new_full((), 128)
-            torch.where(mask, rep, plane, out=out)
+            rep = torch.where(from_ref,
+                              ring.index_select(0, ref.clamp(min=0))[0], 128)
+            planes.append(torch.where(mask, rep, plane))
 
     deblock_frame_wavefront(
         *planes, t["mb_class"], t["nnz"], t["mv"], t["ref_slot"],
         t["slice_id"], t["disable_dblk"], t["qp_y"], t["filter_off_a"],
         t["filter_off_b"], t["chroma_qp_offset"], width_mbs, height_mbs)
+    # the store into the ring slot. The ring is written in place, so
+    # Decoder._make_output copies a picture's planes out of its slot
+    # before a later frame may reuse it
+    slot = row[:1].long()
+    for ring, plane in zip(dpb, planes):
+        ring.index_copy_(0, slot, plane[None])
 
 
 def _to_rgba(y, cb, cr, full_range=False):
@@ -208,6 +234,9 @@ class Decoder:
         self._cap_hist = {}
         self._dpb = None           # (y, cb, cr) ring tensors
         self._geom = None          # stream_info dict
+        self._graphs = {}          # graph key -> FrameGraph over _dpb
+        self._pool = None          # the graphs' memory pool and
+        self._side = None          # capture stream, shared
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -222,23 +251,33 @@ class Decoder:
         status, read = self._fe.decode(data, pic_id, offset, length)
         if status == fe.HDRS_RDY:
             self._geom = self._fe.stream_info()
-            self._dpb = None  # realloc lazily at the next picture
+            self._set_ring(None)  # realloc lazily at the next picture
         elif status == fe.PIC_RDY:
-            self._submit(self._prepare())
+            prep = self._prepare()
+            if self._windowable(prep):
+                self._decode_step(prep)
+            else:
+                self._submit(prep)
         return status, read
+
+    def _set_ring(self, ring):
+        """Replace the DPB ring; the graphs captured over the old one go
+        with it."""
+        self._dpb = ring
+        self._graphs.clear()
 
     def _ensure_dpb(self, g):
         shape = (g["dpb_slots"], g["height_mbs"] * 16, g["width_mbs"] * 16)
         if self._dpb is None or tuple(self._dpb[0].shape) != shape:
-            self._dpb = new_ring(g["dpb_slots"], g["height_mbs"],
-                                 g["width_mbs"], self.device)
+            self._set_ring(new_ring(g["dpb_slots"], g["height_mbs"],
+                                    g["width_mbs"], self.device))
 
     def load_ring(self, y, cb, cr):
         """Seed the DPB ring from numpy (slots, H, W) / (slots, H/2, W/2)
         uint8 arrays, e.g. the JAX package's ring. Call after the stream
         headers (HDRS_RDY), which reset the ring."""
-        self._dpb = tuple(tensor_from_numpy(p, self.device)
-                          for p in (y, cb, cr))
+        self._set_ring(tuple(tensor_from_numpy(p, self.device)
+                             for p in (y, cb, cr)))
 
     def _prepare(self):
         """Host-only half of a frame: gather everything the device step
@@ -284,11 +323,50 @@ class Decoder:
         blob = self._fe.blob_compact(*caps, total_w * 4)
         return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
                     n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
+                    has_inter=info["used_slot_count"] > 0,
                     n_exc=counts[4], ipcm=self._fe.ipcm(),
                     non_existing=non_existing)
 
+    def _stage(self, preps):
+        """The frames' input rows (see _frame_decode_body), (K, ROW_SCALARS
+        + blob words) int32, on the device in one host-to-device copy
+        (from pinned memory on the card, so the copy is asynchronous)."""
+        rows = np.empty((len(preps), ROW_SCALARS + preps[0]["blob"].nbytes
+                         // 4), np.int32)
+        for row, p in zip(rows, preps):
+            info = p["info"]
+            row[:ROW_SCALARS] = (info["slot"], bool(info["conceal_from_ref"]),
+                                 info["conceal_ref_slot"])
+            row[ROW_SCALARS:] = p["blob"].view(np.int32)
+        host = torch.from_numpy(rows)
+        if self.device.type == "cuda":
+            host = host.pin_memory()
+        return host.to(self.device, non_blocking=True)
+
+    @staticmethod
+    def _body_args(prep):
+        """The frame body's static arguments: with the ring's slot count
+        and the blob's length they make the graph key."""
+        return dict(width_mbs=prep["w_mbs"], height_mbs=prep["h_mbs"],
+                    caps=prep["caps"], intra_wavefront=prep["wavefront"],
+                    has_inter=prep["has_inter"])
+
+    def _windowable(self, prep) -> bool:
+        """True when the frame can run the graphed body: nothing
+        frame-individual (no I_PCM samples, no exact spiral concealment,
+        no non-existing-frame slot zeroing), as the JAX package's
+        _windowable decides."""
+        info = prep["info"]
+        n_conc = info["num_concealed_mbs"]
+        partial_loss = 0 < n_conc < prep["n_mbs"]
+        needs_exact = partial_loss and (
+            not info["conceal_from_ref"] or info["conceal_ref_slot"] < 0)
+        return (not needs_exact and not prep["non_existing"]
+                and not len(prep["ipcm"][0]))
+
     def _submit(self, prep):
-        """Device half: transfer the blob and run the frame step."""
+        """Device half of a frame, eagerly: transfer the blob and run the
+        body (the frames _windowable rejects)."""
         info = prep["info"]
         n_mbs = prep["n_mbs"]
         self._ensure_dpb(prep["geom"])
@@ -317,14 +395,71 @@ class Decoder:
             # be ahead on the producer thread): packed records, 8 B/MB,
             # follow the 64-byte header; mb_class is byte 1's low 3 bits
             mb_class = blob[64:64 + n_mbs * 8].reshape(n_mbs, 8)[:, 1] & 7
-            spiral = mb_class != 6
-        _frame_decode_body(
-            blob_words(blob, dev), blob[:64].view(np.uint32).tolist(),
-            self._dpb, pcm, info["slot"], bool(info["conceal_from_ref"]),
-            info["conceal_ref_slot"], prep["w_mbs"], prep["h_mbs"],
-            prep["caps"], prep["wavefront"],
-            has_inter=info["used_slot_count"] > 0, n_exc=prep["n_exc"],
-            spiral_decoded=spiral)
+            spiral = (mb_class != 6, bool(info["conceal_from_ref"]))
+        _frame_decode_body(self._stage([prep])[0], self._dpb, pcm,
+                           **self._body_args(prep), n_exc=prep["n_exc"],
+                           spiral=spiral)
+        STATS["eager_frames"] += 1
+
+    def _run_graphed(self, prep, row):
+        """Decode a windowable frame from its input row on the device:
+        replay the graph of its key, or capture it (which decodes the
+        frame) on the key's first frame. On the CPU the body runs
+        eagerly."""
+        args = self._body_args(prep)
+        if self.device.type == "cpu":
+            _frame_decode_body(row, self._dpb, None, **args)
+            STATS["eager_frames"] += 1
+            return
+        key = (prep["w_mbs"], prep["h_mbs"], self._dpb[0].shape[0],
+               prep["caps"], row.shape[0], prep["wavefront"],
+               prep["has_inter"])
+        graph = self._graphs.get(key)
+        if graph is not None:
+            graph.replay(row)
+            return
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+            self._side = torch.cuda.Stream(self.device)
+        self._graphs[key] = FrameGraph(
+            partial(_frame_decode_body, dpb=self._dpb, pcm=None, **args),
+            row, self._pool, self._side)
+
+    def _decode_step(self, prep):
+        """One windowable frame through its graph (the JAX package's
+        _decode_step)."""
+        self._decode_window_step([(prep, [])])
+
+    def _decode_window_step(self, items):
+        """K windowable frames of one graph key, [(prep, outs)] in decode
+        order (the JAX package's _decode_window_step): their rows go to
+        the device in one copy, then frame k's row is replayed and the
+        pictures it released (outs) are copied out of the ring before
+        frame k+1 may overwrite their slots. Returns those pictures."""
+        self._ensure_dpb(items[0][0]["geom"])
+        rows = self._stage([prep for prep, _ in items])
+        pics = []
+        for row, (prep, outs) in zip(rows, items):
+            self._run_graphed(prep, row)
+            pics += [self._make_output(o, prep["geom"]) for o in outs]
+        return pics
+
+    def _submit_window(self, items):
+        """Decode a window of compatible windowable frames [(prep, outs)]
+        in power-of-two chunks (16, 8, 4, 2, then a lone frame through
+        _decode_step), as the JAX package's _submit_window does. Returns
+        the released pictures in order."""
+        pics = []
+        i = 0
+        while len(items) - i > 1:
+            k = next(k for k in (16, 8, 4, 2) if k <= len(items) - i)
+            pics += self._decode_window_step(items[i:i + k])
+            i += k
+        if len(items) - i:
+            prep, outs = items[i]
+            self._decode_step(prep)
+            pics += [self._make_output(o, prep["geom"]) for o in outs]
+        return pics
 
     # -- output ------------------------------------------------------------
 
@@ -391,9 +526,41 @@ class Decoder:
         return self._fe.valid_param_sets()
 
     def take_sei_messages(self):
-        raise NotImplementedError(
-            "SEI decoding (frontend/sei.py) comes with a later slice of the "
-            "port")
+        """Drain and decode every SEI message received since the last
+        call (list of frontend.sei.SeiMessage). Goes beyond the reference,
+        whose SEI parser is dead code (h264bsd_sei.c; decoder.c:464-466
+        skips the NAL): the front-end queues each SEI NAL's RBSP and the
+        messages are decoded on the host, with buffering-period /
+        pic-timing HRD geometry looked up from the stored SPSs."""
+        def hrd_lookup(sps_id):
+            h = self._fe.sps_hrd(sps_id)
+            if h is None or not h["vui_present"]:
+                return None
+            return {"nal_hrd_present": h["nal_hrd_present"],
+                    "vcl_hrd_present": h["vcl_hrd_present"],
+                    "nal_cpb_cnt": h["nal_cpb_cnt"],
+                    "vcl_cpb_cnt": h["vcl_cpb_cnt"],
+                    "nal_initial_len": h["nal_initial_len"],
+                    "vcl_initial_len": h["vcl_initial_len"]}
+
+        active = None
+        g = self._geom
+        if g is not None:
+            # pic-timing geometry comes from the active SPS
+            for sid in range(32):
+                h = self._fe.sps_hrd(sid)
+                if h is not None:
+                    active = h
+                    break
+        msgs = []
+        pic_size = 0
+        if g:
+            pic_size = g["width_mbs"] * g["height_mbs"]
+        while (rbsp := self._fe.take_sei()) is not None:
+            msgs.extend(parse_sei_rbsp(
+                rbsp, hrd_lookup=hrd_lookup, active_hrd=active,
+                pic_size_in_map_units=pic_size))
+        return msgs
 
 
 def pin_caps_for_stream(data: bytes, typical_pct: float = 75.0) -> dict:
@@ -455,9 +622,13 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
     order.
 
     With pipelined=True the bitstream parse (C++, releases the GIL) runs
-    ahead on a worker thread, overlapping the device work of earlier
-    frames; frames are submitted to the device one at a time."""
-    dec = Decoder(caps_pin=caps_pin, device=device)
+    ahead on a worker thread, and consecutive compatible frames are
+    grouped into windows of up to WINDOW frames, each decoded by
+    Decoder._submit_window (one host-to-device copy, then one graph replay
+    per frame on the card)."""
+    # slot margin = window length, as the JAX package's decode_stream
+    # sets it, so both allocate the same ring slots
+    dec = Decoder(caps_pin=caps_pin, slot_margin=WINDOW, device=device)
     if not pipelined:
         pos = 0
         n_out = 0
@@ -512,25 +683,77 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
             return
         put(None)
 
+    # the pending window: consecutive windowable frames of one graph key
+    window: list = []          # [(prep, outs)]
+
+    def compatible(prep):
+        if not window:
+            return True
+        head = window[0][0]
+        return all(prep[k] == head[k] for k in ("caps", "wavefront",
+                                                 "has_inter", "n_mbs")) \
+            and prep["blob"].nbytes == head["blob"].nbytes
+
+    def flush():
+        """Decode the pending window; its released pictures, in order."""
+        ready = dec._submit_window(window) if window else []
+        window.clear()
+        return ready
+
     t = threading.Thread(target=producer, daemon=True)
     t.start()
     n_out = 0
+    # Pipeline-ramp flushing (the JAX package's): when nothing is parsed
+    # ahead the window is flushed once it holds next_min frames, and
+    # next_min doubles after each such flush (1, 2, 4, ... WINDOW): the
+    # first frames go to the device at once, and behind a busy device
+    # the windows grow to full length.
+    next_min = 1
+    done = False
     try:
-        while (item := q.get()) is not None:
-            if item[0] == "error":
-                raise item[1]
-            if item[0] == "reset":
-                dec._dpb = None
-                continue
-            prep, outs = item
-            dec._submit(prep)
-            # every output is copied out of the ring before the next submit
-            pics = [dec._make_output(o, prep["geom"]) for o in outs]
-            for pic in pics:
-                yield pic
-                n_out += 1
-                if max_pictures is not None and n_out >= max_pictures:
-                    return
+        while not done:
+            item = q.get()
+            while True:
+                if item is None:
+                    done = True
+                    ready = flush()
+                elif item[0] == "error":
+                    raise item[1]
+                elif item[0] == "reset":
+                    ready = flush()
+                    dec._set_ring(None)
+                else:
+                    prep, outs = item
+                    if not dec._windowable(prep):
+                        ready = flush()
+                        dec._submit(prep)
+                        # copied out of the ring before the next submit
+                        ready += [dec._make_output(o, prep["geom"])
+                                  for o in outs]
+                    else:
+                        ready = [] if compatible(prep) else flush()
+                        window.append(item)
+                        if len(window) >= WINDOW:
+                            ready += flush()
+                for pic in ready:
+                    yield pic
+                    n_out += 1
+                    if max_pictures is not None and n_out >= max_pictures:
+                        return
+                if done:
+                    break
+                try:
+                    item = q.get_nowait()
+                except queue.Empty:
+                    if len(window) >= next_min:
+                        next_min = min(2 * next_min, WINDOW)
+                        for pic in flush():
+                            yield pic
+                            n_out += 1
+                            if max_pictures is not None and \
+                                    n_out >= max_pictures:
+                                return
+                    break
     finally:
         stop.set()
         t.join()

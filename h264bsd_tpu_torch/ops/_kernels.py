@@ -11,7 +11,9 @@ Nothing here runs at import time: a wrapper calls launch() only when it
 holds CUDA tensors, so environments without nvcc import every module.
 Each C entry point launches on the stream it is given, allocates
 nothing, and returns cudaGetLastError(); launch() raises on a non-zero
-code. LAUNCHES counts, per kernel, the wrapper calls that launched it.
+code. LAUNCHES counts, per kernel, the wrapper calls that launched it;
+a CUDA graph replay of the frame body adds the counts its capture
+recorded (models/graphs.py).
 """
 
 from __future__ import annotations
@@ -48,6 +50,9 @@ ENTRY = {
                              [_P] * 12 + [_I, _I, _P]),
     "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),
     "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 4 + [_P]),
+    "h264_idct_blocks": ("idct_blocks", "transform", [_P] * 5 + [_I, _P]),
+    "h264_residual_sparse": ("residual_sparse", "transform",
+                             [_P] * 7 + [_I, _I, _P]),
 }
 
 # wrapper calls that launched each kernel (reset_launches() zeroes them)

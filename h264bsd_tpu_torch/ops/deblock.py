@@ -25,7 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .transform import QP_C, table
+from .consts import const
+from .transform import table
 
 # threshold tables, spec Table 8-16 (reference deblocking.c:78-121)
 ALPHAS = np.array([0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,0,4,4,5,6,7,8,9,10,12,13,
@@ -92,7 +93,7 @@ def boundary_strengths(mb_class, nnz, mv, ref_slot, slice_id, disable_dblk,
     inner_top = torch.where(intra[..., None], 3, inner_top)
 
     # MB-edge values. left edge: blocks {0,4,8,12} vs A's {3,7,11,15}
-    cur_l = torch.tensor([0, 4, 8, 12], device=dev)
+    cur_l = torch.arange(0, 16, 4, device=dev)
     nb_l = cur_l + 3
     a_cls, a_nnz, a_mv, a_ref, a_sid = (_shift_prev(x, 1) for x in
                                         (cls, nnz_l, mvg, ref, sid))
@@ -144,7 +145,7 @@ def edge_thresholds(qp_y, slice_id, filter_off_a, filter_off_b,
     def qmap(q):
         if chroma:
             off = grid(chroma_qp_offset)
-            return table(QP_C, dev)[(q + off).clamp(0, 51)]
+            return table("QP_C", dev)[(q + off).clamp(0, 51)]
         return q
 
     qp_inner = qmap(qp)
@@ -155,9 +156,9 @@ def edge_thresholds(qp_y, slice_id, filter_off_a, filter_off_b,
     qps = torch.stack([qp_inner, qp_top, qp_left], dim=-1)   # (h, w, 3)
     idx_a = (qps + offa[..., None]).clamp(0, 51)
     idx_b = (qps + offb[..., None]).clamp(0, 51)
-    alpha = table(ALPHAS, dev)[idx_a].reshape(-1, 3)
-    beta = table(BETAS, dev)[idx_b].reshape(-1, 3)
-    tc0 = table(TC0, dev)[idx_a].reshape(-1, 3, 3)
+    alpha = const("ALPHAS", ALPHAS, dev, torch.int64)[idx_a].reshape(-1, 3)
+    beta = const("BETAS", BETAS, dev, torch.int64)[idx_b].reshape(-1, 3)
+    tc0 = const("TC0", TC0, dev, torch.int64)[idx_a].reshape(-1, 3, 3)
     return (alpha.to(torch.int32).contiguous(),
             beta.to(torch.int32).contiguous(),
             tc0.to(torch.int32).contiguous())

@@ -31,6 +31,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .consts import const
+
 # raster block position within the MB (x, y) in pels
 BLOCK_X = np.array([0, 4, 8, 12] * 4, np.int32)
 BLOCK_Y = np.repeat(np.arange(4) * 4, 4).astype(np.int32)
@@ -114,19 +116,10 @@ def _build_i4_weights() -> np.ndarray:
 
 I4_WEIGHTS = _build_i4_weights()
 
-_CONSTS: dict = {}
-
-
-def _const(name, arr, device):
-    key = (name, str(device))
-    if key not in _CONSTS:
-        _CONSTS[key] = torch.as_tensor(arr, device=device)
-    return _CONSTS[key]
-
 
 def i4_weights(device) -> torch.Tensor:
     """I4_WEIGHTS as a contiguous int32 tensor on `device`, cached."""
-    return _const("i4w", I4_WEIGHTS, device)
+    return const("I4_WEIGHTS", I4_WEIGHTS, device)
 
 
 def _clip8(x):

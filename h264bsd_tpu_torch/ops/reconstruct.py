@@ -5,7 +5,7 @@ Counterpart of the JAX package's ops/reconstruct.py (reconstruct_frame_fast
 :110, non-rowtile branch). The phase passes replace the reference's
 per-macroblock interleaved loop (h264bsd_slice_data.c:131-220):
 
-  1. sparse dequant+IDCT                      (ops.transform)
+  1. sparse dequant+IDCT                      (K9, ops.cuda_transform)
   2. motion compensation from the DPB ring    (K3-K6, ops.cuda_mc)
   3. inter combine: clip(pred + res) on P and P_Skip MBs (image.c:172)
   4. I_PCM raw-sample merge                   (macroblock_layer.c:992-1022)
@@ -20,9 +20,9 @@ import numpy as np
 import torch
 
 from .cuda_intra import intra_pass_cuda
-from .cuda_mc import mc_predict_grids
 from .cuda_intra_wf import intra_pass_wavefront_cuda
-from .transform import residual_planes_sparse
+from .cuda_mc import mc_predict_grids
+from .cuda_transform import residual_planes_sparse_cuda
 from .unpack import unpack_meta
 
 
@@ -64,7 +64,8 @@ def reconstruct_frame_fast(packed, slice_table, sparse_ids, sparse_levels,
     MBs; `dpb` the (y, cb, cr) ring the inter MBs predict from. With
     has_inter False (a picture that references no slot, so has no inter
     MB) motion compensation is skipped: the combine would select
-    nothing. n_exc is the real count of motion-exception quads (see
+    nothing. n_exc is the real count of motion-exception quads, or None
+    to walk every entry of the padded list (see
     ops.cuda_mc.mc_predict_grids). The intra stage walks the intra-MB
     list (K2) or the anti-diagonal wavefront (K7), chosen by the caller
     from the frame's intra-MB count. Returns (y, cb, cr, tensors)."""
@@ -74,7 +75,7 @@ def reconstruct_frame_fast(packed, slice_table, sparse_ids, sparse_levels,
                     intra_mbs, intra_payload, n_mb, slice_ids,
                     sparse_ids=sparse_ids)
     mb_class = t["mb_class"]
-    res_l, res_c = residual_planes_sparse(
+    res_l, res_c = residual_planes_sparse_cuda(
         sparse_ids.reshape(-1), sparse_levels, t["qp_y"],
         t["chroma_qp_offset"], t["nnz_dc"], mb_class == 4, n_mb)
 

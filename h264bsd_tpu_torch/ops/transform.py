@@ -7,8 +7,11 @@ orchestration in ProcessResidual (h264bsd_macroblock_layer.c:1340-1421).
 Only the non-empty blocks the front-end shipped are dequantized and
 butterflied; they are scattered into per-MB residual planes and the
 externally transformed DC terms are added densely before the single
-(x + 32) >> 6 rounding. All arithmetic is int32; right shifts are
-arithmetic, as in the C.
+(x + 32) >> 6 rounding. Right shifts are arithmetic, as in the C.
+
+This module is the plain PyTorch version of the residual stage; the
+wrapper that launches its CUDA kernel (K9's body) on the card is
+ops/cuda_transform.py.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .consts import const
 from .unpack import scatter_present, scatter_unique
 
 # level scale table, spec 8.5.9 (reference transform.c:58-59)
@@ -36,25 +40,31 @@ QP_C = np.array([0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15, 16,
 
 # levelScale[qp%6][SCALE_IDX] pre-expanded per raster position
 LEVEL_SCALE_POS = LEVEL_SCALE[:, SCALE_IDX]             # (6, 16)
+# levelScale[qp%6][0], the DC transforms' multiplier
+LEVEL_SCALE_DC = LEVEL_SCALE[:, 0]
+
+_TABLES = {"LEVEL_SCALE_POS": LEVEL_SCALE_POS,
+           "LEVEL_SCALE_DC": LEVEL_SCALE_DC, "QP_C": QP_C}
 
 
-def table(arr: np.ndarray, device) -> torch.Tensor:
-    """A constant table as an int64 tensor on `device` (index tensors
-    and table values share one dtype, so lookups need no casts)."""
-    return torch.as_tensor(arr, dtype=torch.int64, device=device)
+def table(name: str, device) -> torch.Tensor:
+    """The constant table `name` as an int64 tensor on `device`, cached
+    (index tensors and table values share one dtype, so lookups need no
+    casts)."""
+    return const(name, _TABLES[name], device, torch.int64)
 
 
 def chroma_qp(qp_y, chroma_qp_offset):
     """QP_C[clip(qp_y + offset, 0, 51)] for (nMB,) integer tensors."""
     idx = (qp_y.long() + chroma_qp_offset.long()).clamp(0, 51)
-    return table(QP_C, qp_y.device)[idx]
+    return table("QP_C", qp_y.device)[idx]
 
 
-def _dequant_scales(qp):
+def dequant_scales(qp):
     """Per-raster-position dequant multipliers for a (N,) qp vector ->
     (N, 16) int64 (levelScale[qp%6][SCALE_IDX] << qp//6)."""
     qp = qp.long()
-    per_pos = table(LEVEL_SCALE_POS, qp.device)[qp % 6]
+    per_pos = table("LEVEL_SCALE_POS", qp.device)[qp % 6]
     return per_pos << (qp // 6)[:, None]
 
 
@@ -86,6 +96,18 @@ def idct_butterflies(d):
     return d.reshape(d.shape[:-2] + (16,))
 
 
+def idct_blocks_plain(coeff, scales, ext_dc, skip_dc):
+    """The plain PyTorch version of K9 (the JAX package's _idct_kernel,
+    ops/pallas_transform.py:25): (N, 16) raster levels times (N, 16)
+    dequant scales, position 0 replaced by ext_dc where skip_dc is
+    non-zero, the 4x4 integer IDCT and (x + 32) >> 6. int32 throughout,
+    as on the TPU. Returns (N, 16) int32."""
+    d = coeff.to(torch.int32) * scales.to(torch.int32)
+    d0 = torch.where(skip_dc != 0, ext_dc.to(torch.int32), d[:, 0])
+    d = torch.cat([d0[:, None], d[:, 1:]], dim=1)
+    return (idct_butterflies(d) + 32) >> 6
+
+
 def luma_dc_transform(dc, qp):
     """4x4 Hadamard + scaling of the Intra_16x16 luma DC block
     (reference h264bsdProcessLumaDc transform.c:255-338). dc is
@@ -97,7 +119,7 @@ def luma_dc_transform(dc, qp):
                                d[..., 3, :], False), dim=-2)
     d = d.reshape(-1, 16)
     qp = qp.long()
-    lev = table(LEVEL_SCALE[:, 0], qp.device)[qp % 6]
+    lev = table("LEVEL_SCALE_DC", qp.device)[qp % 6]
     qp_div = qp // 6
     hi = d * (lev << (qp_div - 2).clamp(min=0))[:, None]
     rnd = torch.where(qp_div == 1, 1, 2)
@@ -117,7 +139,7 @@ def chroma_dc_transform(cdc, chroma_qp_):
     out = torch.stack([t0 + t3, t0 - t3, t1 + t2, t1 - t2], dim=-1)
     out = out.reshape(-1, 8)
     q = chroma_qp_.long()
-    lev = table(LEVEL_SCALE[:, 0], q.device)[q % 6]
+    lev = table("LEVEL_SCALE_DC", q.device)[q % 6]
     qp_div = q // 6
     hi = out * (lev << (qp_div - 1).clamp(min=0))[:, None]
     lo = out * lev[:, None] >> 1
@@ -135,10 +157,48 @@ def mb_residual_planes(residual):
     return luma, chroma
 
 
+def residual_dc(sparse_ids, sparse_levels, qp_y, chroma_qp_offset, nnz_dc,
+                is_i16, n_mb):
+    """The externally transformed DC term of every 4x4 block, from the
+    sparse luma-DC (b = 24) and chroma-DC (b = 25) entries: (nMB, 24)
+    int64, luma blocks 0-15 in raster order (Intra_16x16 MBs only, 0
+    elsewhere) then cb 0-3 and cr 0-3; and the chroma QP per MB. The
+    front-end ships a DC block untransformed when its MB's nnz_dc bit is
+    clear (a single DC pass-through, the reference's ProcessLumaDc /
+    ProcessChromaDc skip)."""
+    dev = sparse_ids.device
+    sparse_ids = sparse_ids.long()
+    cqp = chroma_qp(qp_y, chroma_qp_offset)
+    valid = sparse_ids < n_mb * 26
+    ids = sparse_ids.clamp(max=n_mb * 26 - 1)
+    mb = ids // 26
+    b = ids % 26
+
+    # dense DC arrays from the sparse DC entries: ONE scatter over the
+    # stacked [luma DC | chroma DC] domain, other entries to spare rows
+    dc_id = torch.where(valid & (b == 24), mb,
+                        torch.where(valid & (b == 25), n_mb + mb, 2 * n_mb))
+    dc_buf = scatter_unique(torch.zeros((2 * n_mb, 16), dtype=torch.int64,
+                                        device=dev), dc_id,
+                            sparse_levels.long(), 2 * n_mb)
+    ldc_raw = dc_buf[:n_mb]
+    cdc_raw = dc_buf[n_mb:, :8]
+
+    nnz_dc = nnz_dc.long()
+    ldc = torch.where((nnz_dc[:, 0] > 0)[:, None],
+                      luma_dc_transform(ldc_raw, qp_y), ldc_raw)
+    has_cdc = (nnz_dc[:, 1] > 0) | (nnz_dc[:, 2] > 0)
+    cdc = torch.where(has_cdc[:, None],
+                      chroma_dc_transform(cdc_raw, cqp), cdc_raw)
+    dc_l = torch.where(is_i16[:, None], ldc, 0)
+    return torch.cat([dc_l, cdc], dim=1), cqp
+
+
 def residual_planes_sparse(sparse_ids, sparse_levels, qp_y,
                            chroma_qp_offset, nnz_dc, is_i16, n_mb):
     """Sparse-domain ProcessResidual: dequant+IDCT only the shipped
-    blocks, then scatter pixel-domain residuals.
+    blocks, then scatter pixel-domain residuals. The plain PyTorch version
+    of the residual kernel (ops/cuda_transform.py).
 
     sparse_ids: (cap,) block ids (mb*26 + b, b 0..23 AC / 24 luma DC /
     25 chroma DC; padding >= nMB*26); sparse_levels: (cap, 16).
@@ -150,42 +210,20 @@ def residual_planes_sparse(sparse_ids, sparse_levels, qp_y,
     and chroma blocks get their DC term densely; shipped AC entries add
     their butterflies on top.
     """
-    dev = sparse_ids.device
+    dc, cqp = residual_dc(sparse_ids, sparse_levels, qp_y, chroma_qp_offset,
+                          nnz_dc, is_i16, n_mb)
     sparse_ids = sparse_ids.long()
-    cqp = chroma_qp(qp_y, chroma_qp_offset)
-    qp_y = qp_y.long()
-
     valid = sparse_ids < n_mb * 26
     ids = sparse_ids.clamp(max=n_mb * 26 - 1)
     mb = ids // 26
     b = ids % 26
 
-    # dense DC arrays from the sparse DC entries: ONE scatter over the
-    # stacked [luma DC | chroma DC] domain, other entries to spare rows
-    lv = sparse_levels.long()
-    dc_id = torch.where(valid & (b == 24), mb,
-                        torch.where(valid & (b == 25), n_mb + mb, 2 * n_mb))
-    dc_buf = scatter_unique(torch.zeros((2 * n_mb, 16), dtype=torch.int64,
-                                        device=dev), dc_id, lv, 2 * n_mb)
-    ldc_raw = dc_buf[:n_mb]
-    cdc_raw = dc_buf[n_mb:, :8]
-
-    nnz_dc = nnz_dc.long()
-    ldc = torch.where((nnz_dc[:, 0] > 0)[:, None],
-                      luma_dc_transform(ldc_raw, qp_y), ldc_raw)
-    has_cdc = (nnz_dc[:, 1] > 0) | (nnz_dc[:, 2] > 0)
-    cdc = torch.where(has_cdc[:, None],
-                      chroma_dc_transform(cdc_raw, cqp), cdc_raw)
-
     # per-entry dequant + linear butterflies (DC and padding entries
     # compute garbage and are dropped by the scatter id below)
-    qp_e = torch.where(b < 16, qp_y[mb], cqp[mb])
-    bf_e = idct_butterflies(lv * _dequant_scales(qp_e))     # (cap, 16)
-
-    dc_l = torch.where(is_i16[:, None], ldc, 0)            # (nMB, 16)
+    qp_e = torch.where(b < 16, qp_y.long()[mb], cqp[mb])
+    bf_e = idct_butterflies(sparse_levels.long() * dequant_scales(qp_e))
     scatter_id = torch.where(valid & (b < 24), mb * 24 + b, n_mb * 24)
     buf, _ = scatter_present(scatter_id, bf_e, n_mb * 24)
-    dc = torch.cat([dc_l, cdc], dim=1)                      # (nMB, 24)
     residual = ((buf.reshape(n_mb, 24, 16) + dc[:, :, None] + 32) >> 6)
     res_l, res_c = mb_residual_planes(residual.to(torch.int32))
     return res_l.contiguous(), res_c.contiguous()

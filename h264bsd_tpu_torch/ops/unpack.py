@@ -9,17 +9,21 @@ exceptions at 8x8-quad grain, three weight classes of residual blocks
 blocks with a wide-escape list) and nibble-packed intra payloads.
 Everything is re-densified here with gathers and scatters on the device.
 
-The section offsets come from the header, which the caller already holds
-on the host, so every slice is a plain Python slice; each is taken at its
-cap size and entries past the real count are remapped to the padding id,
-so the outputs have the same shapes and values as the JAX package's.
-All words are handled as int64 masked to 32 bits.
+The section offsets are computed on the device from the blob's own count
+header, as the JAX package's lax.dynamic_slice_in_dim does, so one
+captured CUDA graph serves every frame of a blob shape. Each section is
+gathered at its cap size, its start clamped so the slice fits the blob,
+and entries past the real count are remapped to the padding id, so the
+outputs have the same shapes and values as the JAX package's. All words
+are handled as int64 masked to 32 bits.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from .consts import const
 
 _U32 = 0xFFFFFFFF
 
@@ -60,7 +64,7 @@ def scatter_present(ids, updates, n_rows, dtype=None):
                             dtype=dtype)
     buf[safe] = updates.to(dtype)
     pres = torch.zeros(n_rows + cap, dtype=torch.bool, device=ids.device)
-    pres[safe] = True
+    pres.index_fill_(0, safe, True)
     return buf[:n_rows], pres[:n_rows]
 
 
@@ -124,8 +128,9 @@ def unpack_meta(packed, slice_table, mv_exc_ids, mv_exc_payload,
     s_b = sid % 26
     is_ac = (sid < n * 26) & (s_b < 24)
     pres = torch.zeros(n * 24 + sid.shape[0], dtype=torch.bool, device=dev)
-    pres[torch.where(is_ac, s_mb * 24 + s_b,
-                     n * 24 + torch.arange(sid.shape[0], device=dev))] = True
+    pres.index_fill_(0, torch.where(
+        is_ac, s_mb * 24 + s_b,
+        n * 24 + torch.arange(sid.shape[0], device=dev)), True)
     nnz = pres[:n * 24].reshape(n, 24).to(torch.int32)
     t["nnz"] = torch.where((t["mb_class"] == 5)[:, None], 1, nnz).to(
         torch.int32)
@@ -150,7 +155,7 @@ def unpack_meta(packed, slice_table, mv_exc_ids, mv_exc_payload,
                       mv_base[:, 1].repeat_interleave(4)[:, None])
     ref_qg = torch.where(qp_, ((raw >> 26) & 0x3F) - 1,
                          ref_base.repeat_interleave(4)[:, None])
-    perm = torch.as_tensor(QUAD_PERM, device=dev)
+    perm = const("QUAD_PERM", QUAD_PERM, dev, torch.int64)
     mv_qg = torch.stack([mvx, mvy], dim=-1).to(torch.int16)
     t["mv"] = mv_qg.reshape(n, 16, 2)[:, perm]
     t["ref_slot"] = ref_qg.to(torch.int8).reshape(n, 16)[:, perm]
@@ -163,18 +168,66 @@ def unpack_meta(packed, slice_table, mv_exc_ids, mv_exc_payload,
     return t
 
 
+def widen_words(words32):
+    """int32 blob words -> int64 masked to 32 bits (the unsigned words)."""
+    return words32.long() & _U32
+
+
 def blob_words(blob: np.ndarray, device) -> torch.Tensor:
     """Ship a host u8 blob (4-byte aligned) to `device` as int32 words
     and widen them there to int64 masked to 32 bits."""
     w = torch.from_numpy(np.ascontiguousarray(blob).view(np.int32))
-    return w.to(device, non_blocking=True).long() & _U32
+    return widen_words(w.to(device, non_blocking=True))
+
+
+def _sections(n, caps):
+    """The blob's sections behind the 16-word header, in order
+    (FrameTensors::build_blob_compact): (words gathered, header word of
+    the section's real count or -1, words the section advances per
+    counted entry, or in all when the count is -1)."""
+    single, short, full, wide, exc, intra, stab, sid = caps
+    return [(n * 2, -1, n * 2),                  # packed per-MB records
+            (stab, 6, 1),                         # slice table
+            (sid // 2, -1, sid // 2),             # per-MB slice ids
+            (exc * 4, 4, 4),                      # exception payloads
+            (single, 0, 1),                       # single records
+            (short * 2, 1, 2),                    # short levels
+            (intra * 4, 5, 4),                    # intra payloads
+            (full * 4, 2, 4),                     # full levels
+            (short, 1, 1),                        # short ids
+            (exc, 4, 1),                          # exception ids
+            (intra, 5, 1),                        # intra MB ids
+            (full, 2, 1),                         # full ids
+            (wide, 3, 1),                         # wide escape ids
+            (wide, 3, 1)]                         # wide escape values
+
+
+def _gather_index(n, caps, device):
+    """Cached per (n, caps, device): the sections' tables (count word
+    index with 7 = none, advance multiplier, words) and, per gathered
+    word, its section and its position in the section."""
+    key = f"unpack{n}:{caps}"
+    secs = _sections(n, caps)
+    lengths = np.array([s[0] for s in secs], np.int64)
+    cidx = np.array([s[1] if s[1] >= 0 else 7 for s in secs], np.int64)
+    mult = np.array([s[2] for s in secs], np.int64)
+    fixed = np.where(cidx == 7, mult, 0)
+    mult = np.where(cidx == 7, 0, mult)
+    sec = np.repeat(np.arange(len(secs)), lengths)
+    pos = np.arange(lengths.sum()) - np.repeat(np.cumsum(lengths) - lengths,
+                                               lengths)
+    tables = np.stack([cidx, mult, fixed, lengths])
+    return (const(key + "tables", tables, device),
+            const(key + "sec", sec, device),
+            const(key + "pos", pos, device), lengths.tolist())
 
 
 def unpack_blob(words, n_mbs, single_cap, short_cap, full_cap, wide_cap,
-                exc_cap, intra_cap, stab_cap, sid_cap=0, header=None):
+                exc_cap, intra_cap, stab_cap, sid_cap=0):
     """Split the compact blob (int64 words, see blob_words) into the
-    eight streams; `header` is its first 16 words as Python ints (read
-    from `words` when not given, which syncs a CUDA tensor).
+    eight streams, with the section offsets taken from the blob's count
+    header on the device (no host read, so the same work serves every
+    frame of a blob shape).
 
     Returns (packed, slice_table, sparse_ids, sparse_levels, exc_ids,
     exc_payload, intra_ids, intra_payload, slice_ids) with the JAX
@@ -182,72 +235,49 @@ def unpack_blob(words, n_mbs, single_cap, short_cap, full_cap, wide_cap,
     set to the padding id."""
     n = n_mbs
     dev = words.device
-    if header is None:
-        header = words[:16].tolist()
-    c_sgl, c_sht, c_full, c_wide, c_exc, c_intra, c_stab = (
-        int(x) for x in header[:7])
-    total = words.shape[0]
-    off = 16
-
-    def take(count):
-        # dynamic_slice semantics: the start clamps so the slice fits
-        start = max(0, min(off, total - count))
-        return words[start:start + count]
+    caps = (single_cap, short_cap, full_cap, wide_cap, exc_cap, intra_cap,
+            stab_cap, sid_cap)
+    tables, sec, pos, lengths = _gather_index(n, caps, dev)
+    cidx, mult, fixed, length = tables
+    hdr = words[:16]
+    counts = torch.cat([hdr[:7], hdr.new_zeros(1)])   # [7]: no count
+    # section starts: 16 + the advances of the sections before, clamped
+    # as dynamic_slice clamps so every slice fits the blob
+    adv = counts[cidx] * mult + fixed
+    off = 16 + torch.cumsum(adv, 0) - adv
+    start = torch.minimum(off, words.shape[0] - length).clamp(min=0)
+    (packed, stab, sw, epay, sgl, sht, ipay, full, sht_ids, eids, iids,
+     ids, wide_ids, wide_vals) = words[start[sec] + pos].split(lengths)
+    c_sgl, c_sht, c_full, c_wide, c_exc, c_intra = counts[:6]
 
     def mask_ids(ids, cnt, pad):
         keep = torch.arange(ids.shape[0], device=dev) < cnt
         return torch.where(keep, ids, pad)
 
-    packed = take(n * 2).reshape(n, 2)
-    off += n * 2
-    stab = _sext(_bytes_of(take(stab_cap)).reshape(stab_cap, 4), 8) \
-        .to(torch.int8)
-    off += c_stab
+    packed = packed.reshape(n, 2)
+    stab = _sext(_bytes_of(stab).reshape(stab_cap, 4), 8).to(torch.int8)
+    sids = None
     if sid_cap:
-        sw = take(sid_cap // 2)
         sids = torch.stack([sw & 0xFFFF, sw >> 16], dim=-1).reshape(-1)[:n]
-        off += sid_cap // 2
-    else:
-        sids = None
-
-    epay = take(exc_cap * 4).reshape(-1, 4)
-    off += 4 * c_exc
+    epay = epay.reshape(-1, 4)
 
     # single records: word = id << 12 | pos << 8 | (value & 0xFF)
-    sgl = take(single_cap)
-    off += c_sgl
     sgl_val = _sext(sgl, 8)
     sgl_pos = (sgl >> 8) & 15
-
-    sb = _bytes_of(take(short_cap * 2))
-    off += 2 * c_sht
-    sht8 = _sext(sb, 8).reshape(short_cap, 8)
+    sht8 = _sext(_bytes_of(sht), 8).reshape(short_cap, 8)
     sht_lv = torch.cat([sht8, torch.zeros_like(sht8)], dim=1)
-
-    ib = _bytes_of(take(intra_cap * 4))
-    off += 4 * c_intra
-    ipay = ib.to(torch.uint8).reshape(-1, 16)
-
-    fb = _bytes_of(take(full_cap * 4))
-    off += 4 * c_full
-    lv8 = _sext(fb, 8).reshape(-1)
+    ipay = _bytes_of(ipay).to(torch.uint8).reshape(-1, 16)
+    lv8 = _sext(_bytes_of(full), 8).reshape(-1)
     # padded full entries may carry bytes of following sections; zero
     # them so the wide-escape scatter base is clean
     lv8 = torch.where(torch.arange(full_cap * 16, device=dev) < c_full * 16,
                       lv8, 0)
 
-    sht_ids = mask_ids(take(short_cap), c_sht, n * 26)
-    off += c_sht
-    eids = mask_ids(take(exc_cap), c_exc, n * 4)
-    off += c_exc
-    iids = mask_ids(take(intra_cap), c_intra, n)
-    off += c_intra
-    ids = mask_ids(take(full_cap), c_full, n * 26)
-    off += c_full
-    wide_ids = mask_ids(take(wide_cap), c_wide, full_cap * 16)
-    off += c_wide
-    wide_vals = take(wide_cap)
-
+    sht_ids = mask_ids(sht_ids, c_sht, n * 26)
+    eids = mask_ids(eids, c_exc, n * 4)
+    iids = mask_ids(iids, c_intra, n)
+    ids = mask_ids(ids, c_full, n * 26)
+    wide_ids = mask_ids(wide_ids, c_wide, full_cap * 16)
     sgl_ids = mask_ids(sgl >> 12, c_sgl, n * 26)
     sgl_lv = torch.where(sgl_pos[:, None] == torch.arange(16, device=dev),
                          sgl_val[:, None], 0)

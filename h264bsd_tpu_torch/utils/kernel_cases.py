@@ -1,11 +1,12 @@
-"""Seeded random inputs for the deblocking, intra and MC kernels.
+"""Seeded random inputs for the deblocking, intra, MC and transform
+kernels.
 
 The deblocking and intra generators draw, with numpy and in the same
 order, the inputs of the JAX package's kernel parity tests
 (tests/test_pallas_deblock.py and _gen_case of
 tests/test_pallas_intra.py), so one seed gives both packages the same
-arrays. chip_smoke.py and the tests hold each CUDA kernel against its
-plain version on them.
+arrays. The MC and transform cases are the port's own. chip_smoke.py
+and the tests hold each CUDA kernel against its plain version on them.
 """
 
 from __future__ import annotations
@@ -190,3 +191,70 @@ def mc_inputs(case, device):
     n_exc follow)."""
     t = from_numpy(case, device)
     return tuple(t[k] for k in MC_STATE)
+
+
+def idct_case(seed, n) -> dict:
+    """N random blocks for K9 (idct_blocks): int16-range levels as int32
+    (within +-2048, so no int32 product or butterfly overflows), the
+    dequant scales of a random QP per block, and an external DC on half
+    of the blocks."""
+    from ..ops.transform import LEVEL_SCALE_POS
+    rng = np.random.default_rng(seed)
+    qp = rng.integers(0, 52, n)
+    return dict(
+        coeff=rng.integers(-2048, 2048, (n, 16)).astype(np.int32),
+        scales=(LEVEL_SCALE_POS[qp % 6] << (qp // 6)[:, None]).astype(
+            np.int32),
+        ext_dc=rng.integers(-40000, 40000, n).astype(np.int32),
+        skip_dc=(rng.random(n) < 0.5).astype(np.int32))
+
+
+IDCT_STATE = ("coeff", "scales", "ext_dc", "skip_dc")
+
+
+def residual_case(seed, w_mbs, h_mbs, block_share=0.3) -> dict:
+    """A random sparse residual stream as unpack_blob returns it: for each
+    MB a class (a fifth Intra_16x16), a share of its 24 AC blocks with
+    small random levels (position 0 included), luma DC entries (b = 24)
+    on Intra_16x16 MBs and chroma DC entries (b = 25) where the MB's DC
+    bits say so, in random order, padded to ~1.3x with padding ids
+    (nMB*26) that carry garbage levels; random QPs, chroma QP offsets and
+    nnz_dc bits."""
+    rng = np.random.default_rng(seed)
+    n = w_mbs * h_mbs
+    mb_class = np.where(rng.random(n) < 0.2, 4,
+                        rng.integers(0, 4, n)).astype(np.uint8)
+    nnz_dc = rng.integers(0, 2, (n, 3)).astype(np.int32)
+    ac = np.flatnonzero(rng.random(n * 24) < block_share)
+    ids = [(ac // 24) * 26 + ac % 24]
+    levels = [rng.integers(-30, 31, (len(ac), 16)) *
+              (rng.random((len(ac), 16)) < 0.3)]
+    i16 = np.flatnonzero(mb_class == 4)
+    ids.append(i16 * 26 + 24)
+    levels.append(rng.integers(-300, 301, (len(i16), 16)))
+    cdc = np.flatnonzero(nnz_dc[:, 1:].any(1))
+    ids.append(cdc * 26 + 25)
+    levels.append(np.concatenate([rng.integers(-300, 301, (len(cdc), 8)),
+                                  np.zeros((len(cdc), 8), np.int64)], 1))
+    ids = np.concatenate(ids)
+    levels = np.concatenate(levels)
+    order = rng.permutation(len(ids))
+    pad = len(ids) * 3 // 10 + 1
+    return dict(
+        sparse_ids=np.concatenate([ids[order], np.full(pad, n * 26)]),
+        sparse_levels=np.concatenate(
+            [levels[order], rng.integers(-99, 99, (pad, 16))]).astype(
+            np.int16),
+        qp_y=rng.integers(0, 52, n).astype(np.uint8),
+        chroma_qp_offset=rng.integers(-12, 13, n).astype(np.int8),
+        nnz_dc=nnz_dc, is_i16=mb_class == 4)
+
+
+RESIDUAL_STATE = ("sparse_ids", "sparse_levels", "qp_y", "chroma_qp_offset",
+                  "nnz_dc", "is_i16")
+
+
+def case_inputs(case, names, device):
+    """The case's arrays `names` as tensors on `device`, in that order."""
+    t = from_numpy(case, device)
+    return tuple(t[k] for k in names)

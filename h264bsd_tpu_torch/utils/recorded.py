@@ -2,17 +2,18 @@
 
 testdata/reference_checksums.json (written by
 tools/record_torch_port_checksums.py from the JAX package's decodes)
-names each stream by its generator: a function of utils/streamgen.py or
-utils/motion_stream.py, its arguments and, for a loss case, the NAL unit
-removed from the generated bytes. make_recorded_stream regenerates it
-here with the port's own modules.
+names each stream by its generator: a function of utils/streamgen.py,
+utils/motion_stream.py or utils/sei_stream.py, its arguments and, for a
+loss case, the NAL unit removed from the generated bytes.
+make_recorded_stream regenerates it here with the port's own modules.
 """
 
 from __future__ import annotations
 
-from . import motion_stream, streamgen
+from . import motion_stream, sei_stream, streamgen
 
-MODULES = {"streamgen": streamgen, "motion_stream": motion_stream}
+MODULES = {"streamgen": streamgen, "motion_stream": motion_stream,
+           "sei_stream": sei_stream}
 
 
 def drop_nal(data: bytes, k: int) -> bytes:

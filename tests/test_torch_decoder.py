@@ -1,7 +1,8 @@
 """The PyTorch port's decoder, on the CPU, against the JAX package's:
 byte-identical pictures on all-intra streams, the same colour
-conversions and metadata, the scope limit (SEI), and device
-resolution. P streams and partial losses: tests/test_torch_p_decode.py."""
+conversions and metadata, and device resolution. P streams and partial
+losses: tests/test_torch_p_decode.py; windows: tests/test_torch_window.py;
+SEI and StreamingDecoder: tests/test_torch_sei_stream.py."""
 
 import hashlib
 import json
@@ -120,11 +121,6 @@ def test_whole_picture_loss_concealment_matches_jax(intra_concealment):
         outs[mod] = [p.yuv_bytes() for p in pics]
     assert len(outs[tdec]) == len(outs[jdec]) == 4
     assert outs[tdec] == outs[jdec]
-
-
-def test_sei_raises_not_implemented():
-    with pytest.raises(NotImplementedError, match="SEI"):
-        tdec.Decoder(device="cpu").take_sei_messages()
 
 
 def test_no_device_and_no_cuda_raises(monkeypatch):

@@ -1,5 +1,6 @@
 """Each hand-written CUDA kernel of the PyTorch port against its plain
-PyTorch version, on the card, with zero tolerance (integer codec).
+PyTorch version, on the card, with zero tolerance (integer codec), and
+the CUDA-graph replay of the frame body against its eager run.
 
 Needs a CUDA device and nvcc: a CUDA kernel has no CPU mode, so every
 test here skips without one. The repository's tests/conftest.py imports
@@ -23,12 +24,19 @@ from h264bsd_tpu_torch.ops.cuda_intra_wf import (intra_pass_wavefront_cuda,
 from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
                                            mc_exception_plain,
                                            mc_uniform_cuda, mc_uniform_plain)
+from h264bsd_tpu_torch.ops.cuda_transform import (
+    idct_blocks, residual_planes_sparse_cuda)
 from h264bsd_tpu_torch.ops.intra import intra_pass_list
-from h264bsd_tpu_torch.utils.kernel_cases import (deblock_case,
-                                                  deblock_inputs, intra_case,
-                                                  intra_inputs, mc_case,
-                                                  mc_inputs,
-                                                  padded_intra_ids)
+from h264bsd_tpu_torch.ops.transform import (idct_blocks_plain,
+                                             residual_planes_sparse)
+from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE,
+                                                  RESIDUAL_STATE,
+                                                  case_inputs, deblock_case,
+                                                  deblock_inputs, idct_case,
+                                                  intra_case, intra_inputs,
+                                                  mc_case, mc_inputs,
+                                                  padded_intra_ids,
+                                                  residual_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -158,3 +166,63 @@ def test_mc_exception_kernel_without_entries_does_not_launch(dev):
     _assert_planes_equal(got, grids)
     assert case["n_exc"] == 0
     assert _kernels.LAUNCHES["mc_exception"] == before
+
+
+@pytest.mark.parametrize("n", [512, 8192, 1000])
+def test_idct_blocks_kernel(dev, n):
+    args = case_inputs(idct_case(n, n), IDCT_STATE, dev)
+    before = _kernels.LAUNCHES["idct_blocks"]
+    got = idct_blocks(*args)
+    want = idct_blocks_plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert _kernels.LAUNCHES["idct_blocks"] == before + 1
+
+
+@pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (20, 12)),
+                                       (2, (120, 68))])
+def test_residual_sparse_kernel(dev, seed, dims):
+    n = dims[0] * dims[1]
+    args = case_inputs(residual_case(seed, *dims), RESIDUAL_STATE, dev)
+    before = _kernels.LAUNCHES["residual_sparse"]
+    got = residual_planes_sparse_cuda(*args, n)
+    want = residual_planes_sparse(*args, n)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("res_l", "res_c")):
+        assert torch.equal(g, w), name
+    assert _kernels.LAUNCHES["residual_sparse"] == before + 1
+
+
+def test_graph_replay_matches_eager_body(dev):
+    """Every windowable frame of a P stream with real motion through
+    Decoder._decode_step (a capture, then replays) leaves the same ring
+    as the eager frame body on a copy of the ring taken just before."""
+    from h264bsd_tpu_torch.frontend import binding as fe
+    from h264bsd_tpu_torch.models import decoder as tdec
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+
+    data = make_motion_stream(6, 4, 8, seed=2)
+    dec = tdec.Decoder(device=dev)
+    reset_stats()
+    pos = frames = 0
+    while pos < len(data):
+        status, read = dec._fe.decode(data, 0, pos)
+        pos += read
+        if status == fe.PIC_RDY:
+            prep = dec._prepare()
+            assert dec._windowable(prep)
+            dec._ensure_dpb(prep["geom"])
+            ring = tuple(p.clone() for p in dec._dpb)
+            tdec._frame_decode_body(dec._stage([prep])[0], ring, None,
+                                    **dec._body_args(prep))
+            dec._decode_step(prep)
+            torch.cuda.synchronize()
+            for g, w, name in zip(dec._dpb, ring, ("y", "cb", "cr")):
+                assert torch.equal(g, w), f"frame {frames} {name}"
+            frames += 1
+            while dec._fe.next_output() is not None:
+                pass
+    assert frames == 8
+    assert STATS["graph_replays"] > 0
+    assert STATS["graph_captures"] + STATS["graph_replays"] == frames

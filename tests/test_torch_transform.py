@@ -1,0 +1,93 @@
+"""K9 (dequant + inverse transform) of the PyTorch port, on the CPU: its
+plain version against the JAX package's Pallas kernel in interpret mode
+and against the XLA idct4x4; the residual stage's wrapper, on CPU
+tensors, against the JAX package's residual_planes_sparse; and the CUDA
+source's scale table against the Python one. The kernels themselves run
+on the card only (tests/test_torch_kernels_cuda.py)."""
+
+import re
+from functools import partial
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from h264bsd_tpu.ops import transform as jtransform
+from h264bsd_tpu_torch.ops import _kernels
+from h264bsd_tpu_torch.ops import transform as ttransform
+from h264bsd_tpu_torch.ops.cuda_transform import (idct_blocks,
+                                                  residual_planes_sparse_cuda)
+from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE, RESIDUAL_STATE,
+                                                  case_inputs, idct_case,
+                                                  residual_case)
+
+CPU = torch.device("cpu")
+CSRC = Path(__file__).parents[1] / "h264bsd_tpu_torch" / "csrc"
+
+
+def _eq(got, want, name):
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want), name)
+
+
+def test_idct_blocks_plain_matches_pallas_interpret():
+    """N = 1024 blocks (two of the TPU kernel's 512-block tiles), an
+    external DC on half of them."""
+    import jax.experimental.pallas as pl
+    from h264bsd_tpu.ops import pallas_transform as pt
+    case = idct_case(0, 1024)
+    orig = pl.pallas_call
+    pl.pallas_call = lambda *a, **k: orig(*a, interpret=True, **k)
+    try:
+        want = pt.idct_blocks_pallas(*(jnp.asarray(case[k])
+                                       for k in IDCT_STATE))
+    finally:
+        pl.pallas_call = orig
+    got = ttransform.idct_blocks_plain(*case_inputs(case, IDCT_STATE, CPU))
+    assert got.dtype == torch.int32
+    _eq(got, want, "idct_blocks")
+
+
+def test_idct_blocks_plain_matches_idct4x4():
+    case = idct_case(1, 1024)
+    d = case["coeff"] * case["scales"]
+    d[:, 0] = np.where(case["skip_dc"] != 0, case["ext_dc"], d[:, 0])
+    want = jtransform.idct4x4(jnp.asarray(d))
+    args = case_inputs(case, IDCT_STATE, CPU)
+    before = dict(_kernels.LAUNCHES)
+    for fn in (ttransform.idct_blocks_plain, idct_blocks):
+        _eq(fn(*args), want, fn.__name__)
+    assert _kernels.LAUNCHES == before     # CPU tensors: plain versions
+
+
+@partial(jax.jit, static_argnums=(6,))
+def _jax_residual(ids, levels, qp, cqo, nnz_dc, is_i16, n):
+    return jtransform.residual_planes_sparse(ids, levels, qp, cqo, nnz_dc,
+                                             is_i16, n)
+
+
+@pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (9, 5))])
+def test_residual_stage_matches_jax(seed, dims):
+    n = dims[0] * dims[1]
+    case = residual_case(seed, *dims)
+    want = _jax_residual(*(jnp.asarray(case[k]).astype(jnp.int32)
+                           for k in RESIDUAL_STATE[:5]),
+                         jnp.asarray(case["is_i16"]), n)
+    args = case_inputs(case, RESIDUAL_STATE, CPU)
+    before = dict(_kernels.LAUNCHES)
+    for fn in (ttransform.residual_planes_sparse,
+               residual_planes_sparse_cuda):
+        res_l, res_c = fn(*args, n)
+        _eq(res_l, want[0], f"{fn.__name__} res_l")
+        _eq(res_c, want[1], f"{fn.__name__} res_c")
+    assert _kernels.LAUNCHES == before     # CPU tensors: plain versions
+
+
+def test_kernel_scale_table_matches_python():
+    src = (CSRC / "transform.cu").read_text()
+    body = re.search(r"kLevelScalePos\[6\]\[16\] = \{(.*?)\};", src,
+                     re.S).group(1)
+    table = np.array([int(v) for v in re.findall(r"\d+", body)])
+    _eq(table.reshape(6, 16), ttransform.LEVEL_SCALE_POS, "LEVEL_SCALE_POS")

@@ -16,7 +16,12 @@ and prints one JSON line per geometry with:
                         (kernels, copies, memsets) over the wall time;
   kernels               device time and calls per frame by kernel name,
                         the port's CUDA kernels and the rest (the
-                        PyTorch glue: unpack, transform, bS, copies).
+                        PyTorch glue: unpack, DC transforms, bS, copies);
+  graph_captures, graph_replays, eager_frames
+                        how the frames of the profiled pass ran
+                        (models/graphs.py): one capture per frame shape
+                        (each decode_stream call makes a new decoder),
+                        replays for the rest.
 Usage: python3 tools/profile_torch_port.py \
            [--geometry 80x45x16 ippp:120x68x8 motion:120x68x5 ...]
 """
@@ -36,7 +41,8 @@ sys.path.insert(0, str(Path(__file__).parents[1]))
 import torch  # noqa: E402
 
 OURS = ("intra_wf_kernel", "intra_list_kernel", "deblock_wf_kernel",
-        "deblock_raster_kernel", "mc_uniform_kernel", "mc_exception_kernel")
+        "deblock_raster_kernel", "mc_uniform_kernel", "mc_exception_kernel",
+        "residual_dc_kernel", "residual_entries_kernel")
 
 
 def busy_us(intervals):
@@ -70,6 +76,7 @@ def make_stream(kind, w, h, n):
 def profile(kind, w, h, n):
     from h264bsd_tpu_torch.frontend import binding as fe
     from h264bsd_tpu_torch.models.decoder import Decoder, decode_stream
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
 
     call, data = make_stream(kind, w, h, n)
 
@@ -99,6 +106,7 @@ def profile(kind, w, h, n):
 
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
+    reset_stats()
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
         k = sum(1 for _ in decode_stream(data))
@@ -125,6 +133,7 @@ def profile(kind, w, h, n):
             "profiled_wall_ms_per_frame": wall_us / 1e3 / k,
             "device_busy_ms_per_frame": busy / 1e3 / k,
             "device_idle_share": 1 - busy / wall_us,
+            **STATS,
             "kernels_ms_per_frame": sum(r["ms_per_frame"] for r in ours),
             "glue_ms_per_frame": sum(r["ms_per_frame"] for r in glue),
             "glue_calls_per_frame": sum(r["calls_per_frame"] for r in glue),

@@ -7,9 +7,12 @@ h264bsd_tpu_torch/testdata/reference_checksums.json: for every stream its
 generator call, the SHA-256 of the generated bytes and the
 frame_checksum_host of every output picture's uncropped YUV, in display
 order. The streamgen streams are generated with the JAX package's
-streamgen, the motion streams with the port's utils/motion_stream.py
-(test data of the port). chip_smoke.py regenerates every stream with the
-port's own modules (it may not import the JAX package) and compares.
+streamgen, the motion and SEI streams with the port's
+utils/motion_stream.py and utils/sei_stream.py (test data of the port).
+An entry marked "sei" also records the SEI messages the JAX package's
+Decoder.take_sei_messages returns, as [payload_type, name, payload hex].
+chip_smoke.py regenerates every stream with the port's own modules (it
+may not import the JAX package) and compares.
 
 Usage:
   JAX_PLATFORMS=cpu python tools/record_torch_port_checksums.py \
@@ -93,18 +96,44 @@ STREAMS = {
                            kwargs=dict(slices_per_frame=2), drop_nal=3),
     "loss_p_slice": dict(maker="make_conformance_stream", args=[],
                          kwargs=dict(slices_per_frame=2), drop_nal=5),
+    # an SEI NAL unit before every picture (Decoder.take_sei_messages)
+    "sei_20x12": dict(module="sei_stream", maker="make_sei_stream",
+                      args=[20, 12, 6], sei=True),
+    # 1080p IPPP fed to StreamingDecoder in chunks
+    "stream_ippp_1080p": dict(maker="make_ippp_stream", args=[120, 68, 12]),
 }
 
 
+def sei_messages(data, jdec) -> list:
+    """[payload_type, name, payload hex] of every SEI message of the
+    stream, in order, from the decoder module `jdec`'s Decoder."""
+    dec = jdec.Decoder()
+    out = []
+    pos = 0
+    while pos < len(data):
+        status, read = dec.decode(data[pos:])
+        pos += read
+        if status == jdec.PIC_RDY:
+            while dec.next_output_picture() is not None:
+                pass
+        out += [[m.payload_type, m.name, m.payload.hex()]
+                for m in dec.take_sei_messages()]
+        if status >= jdec.ERROR and read == 0:
+            break
+    return out
+
+
 def record(names) -> dict:
+    from h264bsd_tpu.models import decoder as jdec
     from h264bsd_tpu.models.decoder import decode_stream, frame_checksum_host
     from h264bsd_tpu.utils import streamgen
-    from h264bsd_tpu_torch.utils import motion_stream
+    from h264bsd_tpu_torch.utils import motion_stream, sei_stream
     from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
 
-    # the JAX package's streamgen for its streams; the motion stream is
-    # the port's own test data
-    modules = {"streamgen": streamgen, "motion_stream": motion_stream}
+    # the JAX package's streamgen for its streams; the motion and SEI
+    # streams are the port's own test data
+    modules = {"streamgen": streamgen, "motion_stream": motion_stream,
+               "sei_stream": sei_stream}
     out = {}
     for name in names:
         entry = STREAMS[name]
@@ -114,6 +143,8 @@ def record(names) -> dict:
                 for p in decode_stream(data)]
         out[name] = {**entry, "sha256": hashlib.sha256(data).hexdigest(),
                      "checksums": sums}
+        if entry.get("sei"):
+            out[name]["sei_messages"] = sei_messages(data, jdec)
         print(f"{name}: {len(sums)} pictures in "
               f"{time.perf_counter() - t0:.1f} s", file=sys.stderr)
     return out
