@@ -3,12 +3,13 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card, decodes all-intra, P (IPPP and real motion),
-partial-loss and SEI streams through decode_stream, Decoder.decode and
-StreamingDecoder (windowable frames replay one CUDA graph per frame
-shape) and checks every picture's checksum, and the SEI messages,
-against the values the JAX package recorded
-(h264bsd_tpu_torch/testdata/reference_checksums.json, written by
+PyTorch version on the card (the dependency-driven K1 and K2 also over 50
+CUDA-graph replays on fresh planes, a race check), decodes all-intra, P
+(IPPP and real motion), partial-loss and SEI streams through
+decode_stream, Decoder.decode and StreamingDecoder (windowable frames
+replay one CUDA graph per frame shape) and checks every picture's
+checksum, and the SEI messages, against the values the JAX package
+recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written by
 tools/record_torch_port_checksums.py), then times each kernel: its device
 time from torch.profiler's kernel events, the CUDA-event time of the
 wrapper call, and the plain version's time. Prints one JSON line per
@@ -28,6 +29,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 # the least time the card could take (bound_ms). Bytes: the H100 SXM data
@@ -78,6 +80,7 @@ KERNELS = {
 DEVICE_FN = {k: (f"{k}_kernel",) for k in KERNELS}
 DEVICE_FN["residual_sparse"] = ("residual_dc_kernel",
                                 "residual_entries_kernel")
+DEVICE_FN["intra_list"] = ("intra_list_pos_kernel", "intra_list_kernel")
 PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
                    "intra_wf": "decode_720p_all_i",
                    "intra_list": "decode_1080p_motion",
@@ -159,6 +162,28 @@ def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def graph_replays_err(kernel, plain, args, dims, replays):
+    """Capture one call of `kernel` in a CUDA graph and replay it
+    `replays` times, each on a fresh copy of the planes; returns the
+    largest max |err| of a replay against the plain version. A race
+    between the blocks of a dependency-driven kernel would show as a
+    replay that differs."""
+    want = plain(*planes_copy(args), *dims)
+    static = planes_copy(args)
+    kernel(*planes_copy(args), *dims)        # warm: libraries, tables
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernel(*static, *dims)
+    worst = 0
+    for _ in range(replays):
+        for dst, src in zip(static[:3], args[:3]):
+            dst.copy_(src)
+        graph.replay()
+        worst = max(worst, max_abs_err(static[:3], want))
+    return worst
+
+
 def mc_ops(mvx, mvy, pels_luma, pels_chroma):
     """int32 operations of the one fractional case each predicted unit
     (an MB or a 4x4 block, with its MV) needs."""
@@ -183,7 +208,8 @@ def main() -> int:
         deblock_frame_cuda_from_bs, deblock_raster_plain)
     from h264bsd_tpu_torch.ops.cuda_deblock_wf import (
         deblock_frame_wavefront_from_bs, deblock_wavefront_plain)
-    from h264bsd_tpu_torch.ops.cuda_intra import intra_pass_cuda
+    from h264bsd_tpu_torch.ops.cuda_intra import (intra_pass_cuda,
+                                                  list_dependency_levels)
     from h264bsd_tpu_torch.ops.cuda_intra_wf import (
         intra_pass_wavefront_cuda, intra_pass_wavefront_plain)
     from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
@@ -232,7 +258,10 @@ def main() -> int:
                                  f"its plain version (max |err| {err})")
 
     _kernels.reset_launches()
-    for seed, dims in enumerate([(6, 4), (9, 5), (3, 7), (20, 12)]):
+    # K1 on the narrowest frame it takes (the longest chain per MB), a
+    # one-row frame and 1080p
+    for seed, dims in enumerate([(6, 4), (9, 5), (3, 7), (20, 12), (3, 40),
+                                 (40, 1), (120, 68)]):
         check("deblock_wf", deblock_frame_wavefront_from_bs,
               deblock_wavefront_plain,
               kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev),
@@ -242,13 +271,26 @@ def main() -> int:
               deblock_raster_plain,
               kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev),
               dims)
-    for seed, (dims, pad) in enumerate([((6, 4), 0), ((20, 12), 7)]):
-        case = kc.intra_case(seed, *dims)
-        ids = kc.padded_intra_ids(case, pad, dev)
+    # K2 on raster lists, a shuffled one (an order the front-end never
+    # ships), a sparse 1080p one (~3% intra, a P picture's share), one of
+    # padding only and a dense 40x23 all-intra one padded to its cap
+    intra_lists = [
+        ("raster", (6, 4), kc.intra_case(0, 6, 4), 0, None),
+        ("raster", (20, 12), kc.intra_case(1, 20, 12), 7, None),
+        ("shuffled", (20, 12), kc.intra_case(2, 20, 12), 7, 2),
+        ("sparse", (120, 68), kc.intra_case(3, 120, 68, intra_share=0.03),
+         200, None),
+        ("padding", (6, 4), kc.intra_case(4, 6, 4, intra_share=0.0), 16,
+         None),
+        ("dense", (40, 23), kc.intra_case(5, 40, 23, all_intra=True), 104,
+         None)]
+    for kind, dims, case, pad, shuffle in intra_lists:
+        ids = kc.padded_intra_ids(case, pad, dev, shuffle_seed=shuffle)
         check("intra_list",
               lambda *a: intra_pass_cuda(*a, intra_ids=ids),
               lambda *a: plain_intra_list(*a[:-1], ids=ids),
               kc.intra_inputs(case, dev), dims)
+        checks[-1]["list"] = kind
     for dims in [(12, 9), (16, 3), (5, 11), (3, 2), (20, 12)]:
         check("intra_wf", intra_pass_wavefront_cuda,
               intra_pass_wavefront_plain,
@@ -281,7 +323,30 @@ def main() -> int:
               lambda *a: residual_planes_sparse(*a[:6], n),
               kc.case_inputs(kc.residual_case(seed, *dims),
                              kc.RESIDUAL_STATE, dev), dims)
-    emit({"phase": "kernels", "checks": checks,
+    # races: K1 and K2 replayed from a CUDA graph on fresh planes
+    races = []
+
+    def race(name, kernel, plain, args, dims):
+        err = graph_replays_err(kernel, plain, args, dims, 50)
+        errs[name] = max(errs[name], err)
+        races.append({"kernel": name, "dims": list(dims), "replays": 50,
+                      "max_abs_err": err})
+        if err:
+            raise AssertionError(f"{name} at {dims}: a graph replay differs "
+                                 f"from the plain version (max |err| {err})")
+
+    race("deblock_wf", deblock_frame_wavefront_from_bs,
+         deblock_wavefront_plain,
+         kc.deblock_inputs(kc.deblock_case(9, 120, 68), 120, 68, dev),
+         (120, 68))
+    for kind, dims, case, pad, _ in intra_lists:
+        if kind in ("sparse", "dense"):
+            ids = kc.padded_intra_ids(case, pad, dev)
+            race("intra_list",
+                 lambda *a: intra_pass_cuda(*a, intra_ids=ids),
+                 lambda *a: plain_intra_list(*a[:-1], ids=ids),
+                 kc.intra_inputs(case, dev), dims)
+    emit({"phase": "kernels", "checks": checks, "graph_replays": races,
           "launches": dict(_kernels.LAUNCHES)})
 
     # ---- decodes: checksums against the JAX package's recorded values
@@ -415,8 +480,10 @@ def main() -> int:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
 
-    # ---- timing at the main path's shapes (720p for K1/K7, 40x23 for K2,
-    # 2x4 for K8, 1080p for MC), kernel vs plain on the same inputs
+    # ---- timing at the main path's shapes (1080p for K1, K2 on a 1080p
+    # motion picture's list, 720p for K7, 2x4 for K8, 1080p for MC and
+    # K9), kernel vs plain on the same inputs; K1 at 720p and K2 at 40x23
+    # all-intra too (earlier rows' shapes)
     def deblock_bound(args, dims):
         y, cb, cr, bs_left, bs_top, lt, ct = args
         lines = 4 * int((bs_left > 0).sum() + (bs_top > 0).sum())
@@ -429,15 +496,51 @@ def main() -> int:
         return byt, ops
 
     def intra_bound(args, dims, ids=None):
-        y, cb, cr, mb_class, *rest = args
-        n_intra = int(((mb_class == 3) | (mb_class == 4)).sum())
-        ops = n_intra * 384 * OPS_INTRA_PEL
-        # the kernel reads the per-MB inputs as int32, the weight table
-        # (9x16x13 int32) and the id list
-        byt = 2 * nbytes((y, cb, cr)) + 4 * sum(
-            t.numel() for t in (mb_class, *rest)) + 9 * 16 * 13 * 4
+        mb_class, i4_avail, mb_avail = args[3], args[5], args[6]
+        w, h = dims
+        intra = (mb_class == 3) | (mb_class == 4)
         if ids is not None:
-            byt += 4 * ids.numel()
+            real = ids[(ids >= 0) & (ids < mb_class.numel())].long()
+            intra = torch.zeros_like(intra).index_fill_(0, real, True) \
+                & intra
+        n_intra = int(intra.sum())
+        ops = n_intra * 384 * OPS_INTRA_PEL
+        mb = torch.nonzero(intra).flatten()
+        r, c = mb // w, mb % w
+        av = mb_avail[mb].long()
+        # the available neighbours' pels: left column (A), above row (B),
+        # corner (D), and for an I4x4 MB the 4 above-right luma pels of
+        # its top-right block (C)
+        a = ((av & 1) != 0) & (c > 0)
+        b = ((av & 2) != 0) & (r > 0)
+        d = ((av & 8) != 0) & (r > 0) & (c > 0)
+        ar = (mb_class[mb] == 3) & ((i4_avail[mb, 3].long() & 4) != 0) \
+            & (r > 0) & (c < w - 1)
+        own = intra.reshape(h, w)
+
+        def edge_pels(s, above_right):
+            """Pels of a plane of s x s pels per MB that the reconstructed
+            MBs read, each counted once, outside the MBs this call
+            reconstructs (those it writes before it reads them)."""
+            mask = torch.zeros(h * s, w * s, dtype=torch.bool,
+                               device=mb.device)
+            k = torch.arange(s, device=mb.device)
+            y0, x0 = (r * s)[:, None], (c * s)[:, None]
+            for sel, ys, xs in ((a, y0 + k, x0 - 1), (b, y0 - 1, x0 + k),
+                                (d, y0 - 1, x0 - 1),
+                                (above_right, y0 - 1, x0 + s + k[:4])):
+                flat = (ys * (w * s) + xs)[sel].reshape(-1)
+                mask.view(-1).index_fill_(0, flat, True)
+            inside = own.repeat_interleave(s, 0).repeat_interleave(s, 1)
+            return int((mask & ~inside).sum())
+
+        # per reconstructed MB its 384 pels written and its modes,
+        # availability and residuals as int32 (2 x 16 + 4 + 256 + 128);
+        # the neighbour pels read; the weight table (9x16x13 int32), and
+        # the classes (K7) or the id list (K2)
+        byt = n_intra * (384 + 4 * 420) + edge_pels(16, ar) \
+            + 2 * edge_pels(8, torch.zeros_like(ar)) + 9 * 16 * 13 * 4 \
+            + 4 * (mb_class.numel() if ids is None else ids.numel())
         return byt, ops
 
     def mc_uniform_bound(args, dims):
@@ -466,9 +569,10 @@ def main() -> int:
             + 4 * 384 * n
         return byt, blocks * OPS_IDCT_BLOCK + 384 * n * OPS_DC_PEL
 
-    def frame_residual_args(name, k):
-        """The residual stage's inputs of frame k of stream `name`, as the
-        main path unpacks them on the card, and its MB count."""
+    def frame_state(name, k):
+        """Frame k of stream `name` as the main path unpacks it on the
+        card: (unpack_meta's tensors, sparse ids, sparse levels, intra
+        ids, MB count)."""
         data = recorded_stream(name)[1]
         dec = Decoder()
         pos = frames = 0
@@ -488,16 +592,34 @@ def main() -> int:
                                   *prep["caps"])
         t = unpack_meta(packed, stab, eids, epay, iids, ipay, n, slice_ids,
                         sparse_ids=sids)
-        return (sids.reshape(-1), slv, t["qp_y"], t["chroma_qp_offset"],
-                t["nnz_dc"], t["mb_class"] == 4), n
+        return t, sids.reshape(-1), slv, iids.reshape(-1), n
 
-    rows = []
+    def residual_args(t, sids, slv):
+        return (sids, slv, t["qp_y"], t["chroma_qp_offset"], t["nnz_dc"],
+                t["mb_class"] == 4)
+
+    def frame_intra_args(t, sids, slv, n, dims, seed):
+        """K2's inputs on the frame: its per-MB state and residuals as the
+        main path computes them, on seeded random planes."""
+        res_l, res_c = residual_planes_sparse_cuda(*residual_args(
+            t, sids, slv), n)
+        rng = np.random.default_rng(seed)
+        w, h = dims
+        planes = [torch.from_numpy(rng.integers(0, 256, shape, np.uint8))
+                  .to(dev) for shape in ((16 * h, 16 * w),
+                                         (8 * h, 8 * w), (8 * h, 8 * w))]
+        return (*planes, t["mb_class"], t["i4_modes"], t["i4_avail"],
+                t["mb_avail"], t["i16_mode"], t["chroma_mode"], res_l, res_c)
+
+    rows, extra_rows = [], []
 
     def time_kernel(name, kernel, plain, args, dims, bound, serial,
-                    plain_reps):
+                    plain_reps, extra=False):
         """serial: the kernel's chain of dependent steps (diagonals for
-        the wavefront kernels, one CUDA launch each; MBs walked by the
-        single launch of the raster and list kernels; 1 for MC)."""
+        K7, one CUDA launch each; MBs on the longest dependency chain
+        for K1 and K2, in their single launch; MBs walked by K8; 1 for
+        MC and K9). extra: a row at a second shape, kept out of the
+        kernels line."""
         got = kernel(*planes_copy(args), *dims)
         want = plain(*planes_copy(args), *dims)
         err = max_abs_err(got, want)
@@ -505,7 +627,8 @@ def main() -> int:
         if err:
             raise AssertionError(f"{name} at {dims}: kernel differs from "
                                  f"its plain version (max |err| {err})")
-        per_call = serial if name.endswith("_wf") else 1
+        # launches per call of each of the kernel's CUDA functions
+        per_call = serial if name == "intra_wf" else 1
         ms, recorded = device_ms(lambda *a: kernel(*a, *dims), args, 20,
                                  name, per_call)
         event_ms = timed_ms(lambda *a: kernel(*a, *dims), args, 20)
@@ -513,38 +636,47 @@ def main() -> int:
         byt, ops = bound
         t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
         source, replaces = KERNELS[name]
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": launches[name],
-                     "max_abs_err": errs[name], "ms": ms,
-                     "plain_ms": plain_ms,
-                     "bound_ms": 1e3 * max(t_bytes, t_ops),
-                     "bound_by": "bytes" if t_bytes >= t_ops
-                     else "operations",
-                     "library_ms": None, "dims": list(dims),
-                     "event_ms": event_ms,
-                     "launches_per_frame": per_frame[name],
-                     "cuda_launches_per_call": per_call,
-                     "profiled_launches_per_call": recorded,
-                     "serial_steps": serial, "bytes": byt, "ops": ops})
+        (extra_rows if extra else rows).append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name],
+            "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None, "dims": list(dims), "event_ms": event_ms,
+            "launches_per_frame": per_frame[name],
+            "cuda_launches_per_call": per_call * len(DEVICE_FN[name]),
+            "profiled_launches_per_call": recorded,
+            "serial_steps": serial, "bytes": byt, "ops": ops})
 
+    for seed, dims, extra in ((10, (120, 68), False), (11, (80, 45), True)):
+        args = kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev)
+        time_kernel("deblock_wf", deblock_frame_wavefront_from_bs,
+                    deblock_wavefront_plain, args, dims,
+                    deblock_bound(args, dims),
+                    len([d for d in anti_diagonals(*dims) if d]), 1, extra)
     dims = (80, 45)
-    n_diag = len(anti_diagonals(*dims))
-    args = kc.deblock_inputs(kc.deblock_case(11, *dims), *dims, dev)
-    time_kernel("deblock_wf", deblock_frame_wavefront_from_bs,
-                deblock_wavefront_plain, args, dims,
-                deblock_bound(args, dims), n_diag, 2)
     args = kc.intra_inputs(kc.intra_case(12, *dims, all_intra=True), dev)
     time_kernel("intra_wf", intra_pass_wavefront_cuda,
                 intra_pass_wavefront_plain, args, dims,
-                intra_bound(args, dims), n_diag, 2)
+                intra_bound(args, dims), len(anti_diagonals(*dims)), 2)
+    # K2 on the second picture (a P picture) of the 1080p motion stream,
+    # and on a 40x23 all-intra frame
+    motion = frame_state("motion_1080p", 1)
+    t, sids, slv, ids, n = motion
+    dims = (120, 68)
+    args = frame_intra_args(t, sids, slv, n, dims, 13)
+    lists = [(args, ids, dims, False)]
     dims = (40, 23)
     case = kc.intra_case(13, *dims, all_intra=True)
-    ids = kc.padded_intra_ids(case, 0, dev)
-    args = kc.intra_inputs(case, dev)
-    time_kernel("intra_list",
-                lambda *a: intra_pass_cuda(*a, intra_ids=ids),
-                lambda *a: plain_intra_list(*a[:-1], ids=ids), args, dims,
-                intra_bound(args, dims, ids), int(ids.numel()), 1)
+    lists.append((kc.intra_inputs(case, dev),
+                  kc.padded_intra_ids(case, 0, dev), dims, True))
+    for args, ids, dims, extra in lists:
+        time_kernel("intra_list",
+                    lambda *a: intra_pass_cuda(*a, intra_ids=ids),
+                    lambda *a: plain_intra_list(*a[:-1], ids=ids), args,
+                    dims, intra_bound(args, dims, ids),
+                    len(list_dependency_levels(ids, args[3], *dims)), 1,
+                    extra)
     dims = (2, 4)
     args = kc.deblock_inputs(kc.deblock_case(14, *dims), *dims, dev)
     time_kernel("deblock_raster", deblock_frame_cuda_from_bs,
@@ -570,7 +702,8 @@ def main() -> int:
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
                 (n * (16 * 4 * 2 + 8) + n * 64, n * OPS_IDCT_BLOCK), 1, 5)
-    args, n = frame_residual_args("motion_1080p", 1)
+    t, sids, slv, _, n = motion
+    args = residual_args(t, sids, slv)
     time_kernel("residual_sparse",
                 lambda *a: residual_planes_sparse_cuda(*a[:6], n),
                 lambda *a: residual_planes_sparse(*a[:6], n), args,
@@ -579,8 +712,9 @@ def main() -> int:
           "kernels": [{k: r[k] for k in ("name", "dims", "ms", "event_ms",
                                          "plain_ms", "bound_ms",
                                          "cuda_launches_per_call",
+                                         "serial_steps",
                                          "launches_per_frame")}
-                      for r in rows]})
+                      for r in rows + extra_rows]})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -18,8 +18,8 @@
 // chain of up to 16 barrier steps inside its MBs. Design: one launch per
 // diagonal keeps the dependency in launch order; each MB's read rectangle
 // sits in shared memory while its block steps run (intra_mb.cuh). A
-// single persistent launch that waits on per-row progress flags instead
-// of launch boundaries is left to a later change.
+// single dependency-driven launch, as K1 and K2 have (mb_sync.cuh), is
+// left to a later change.
 
 #include <cuda_runtime.h>
 
@@ -34,7 +34,8 @@ intra_wf_kernel(IntraArgs a, int w, int r_lo) {
   const int mb = r * a.width_mbs + (w - 2 * r);
   const int cls = a.mb_class[mb];
   if (cls != 3 && cls != 4) return;
-  intra_mb(a, mb, s);
+  intra_mb_stage(a, mb, s);
+  intra_mb_reconstruct(a, mb, s);
 }
 
 extern "C" int h264_intra_wavefront(

@@ -38,14 +38,16 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P, _I = ct.c_void_p, ct.c_int
 # C entry point -> (kernel name, source stem, argtypes); the trailing
-# c_void_p of every entry point is the CUDA stream
+# c_void_p of every entry point is the CUDA stream. The dependency-driven
+# kernels (deblock_wf, intra_list) take their int32 scratch -- done flags
+# and ticket counter -- as pointers the wrapper allocates.
 ENTRY = {
     "h264_deblock_wavefront": ("deblock_wf", "deblock_wf",
-                               [_P] * 11 + [_I, _I, _P]),
+                               [_P] * 12 + [_I, _I, _P]),
     "h264_deblock_raster": ("deblock_raster", "deblock_wf",
                             [_P] * 11 + [_I, _I, _P]),
     "h264_intra_list": ("intra_list", "intra_list",
-                        [_P] * 13 + [_I, _I, _I, _P]),
+                        [_P] * 15 + [_I, _I, _I, _P]),
     "h264_intra_wavefront": ("intra_wf", "intra_wf",
                              [_P] * 12 + [_I, _I, _P]),
     "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),

@@ -2,13 +2,19 @@
 
 Counterpart of the JAX package's ops/pallas_deblock_wf.py
 (deblock_frame_wavefront :592, deblock_frame_wavefront_from_bs :616).
-The kernel is deblock_wf_kernel in csrc/deblock_wf.cu: one launch per
-anti-diagonal w = 2r + c, one thread block per MB on it. The boundary
-strengths and thresholds are plain PyTorch on the device
-(ops/deblock.py), as they are XLA outside the TPU kernel.
+The kernel is deblock_wf_kernel in csrc/deblock_wf.cu: one launch, one
+thread block per MB, each taking MBs in raster order from a ticket
+counter and waiting on the done flags of its left, above and above-right
+MBs (csrc/mb_sync.cuh) instead of a launch per anti-diagonal. The MBs
+that rule lets run together are those of one anti-diagonal
+(ops.deblock.anti_diagonals). The boundary strengths and thresholds are
+plain PyTorch on the device (ops/deblock.py), as they are XLA outside
+the TPU kernel.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import _kernels
 from .cuda_deblock import deblock_args, deblock_frame_cuda_from_bs
@@ -37,9 +43,13 @@ def deblock_frame_wavefront_from_bs(y, cb, cr, bs_left, bs_top, luma_thr,
     if y.device.type == "cpu":
         return deblock_wavefront_plain(y, cb, cr, bs_left, bs_top, luma_thr,
                                        chroma_thr, width_mbs, height_mbs)
-    _kernels.launch("h264_deblock_wavefront", y.device,
-                    *deblock_args(y, cb, cr, bs_left, bs_top, luma_thr,
-                                  chroma_thr, width_mbs, height_mbs))
+    args = deblock_args(y, cb, cr, bs_left, bs_top, luma_thr, chroma_thr,
+                        width_mbs, height_mbs)
+    # the kernel's scratch: each MB's done flag, then the ticket counter
+    sync = torch.zeros(width_mbs * height_mbs + 1, dtype=torch.int32,
+                       device=y.device)
+    _kernels.launch("h264_deblock_wavefront", y.device, *args[:-2],
+                    sync.data_ptr(), *args[-2:])
     return y, cb, cr
 
 

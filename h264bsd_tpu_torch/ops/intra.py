@@ -12,8 +12,9 @@ from the reconstructed pels of its left/above neighbours, which
 serializes the blocks of an MB (zigzag order) and the MBs along
 anti-diagonals t = 2r + c. The functions here take a BATCH of MBs whose
 reads and writes are independent (one MB, or the intra MBs of one
-anti-diagonal) and write it in place into uint8 planes; intra_pass and
-intra_pass_list walk the MBs in decode order, one MB per step.
+anti-diagonal) and write it in place into uint8 planes; intra_pass walks
+the MBs in raster order and intra_pass_list in list order (the
+front-end's list is raster-ordered), one MB per step.
 
 Every neighbour read clamps its address into the picture as the JAX
 package does; the clamped pels feed only unavailable-neighbour paths.
@@ -339,8 +340,9 @@ def intra_pass(y_plane, cb_plane, cr_plane, mb_class, i4_modes, i4_avail,
 def intra_pass_list(y_plane, cb_plane, cr_plane, intra_mbs_, mb_class,
                     i4_modes, i4_avail, mb_avail, i16_mode, chroma_mode,
                     resid_luma, resid_chroma, width_mbs):
-    """Sequential pass over an explicit decode-ordered intra-MB id list
-    (padded with ids outside 0..nMB-1, which are skipped)."""
+    """Sequential pass over an explicit intra-MB id list, in list order
+    (the front-end's is raster-ordered), padded with ids outside
+    0..nMB-1, which are skipped."""
     n_mbs = mb_class.shape[0]
     intra = _is_intra(mb_class).tolist()
     ids = [i for i in intra_mbs_.reshape(-1).tolist()

@@ -54,12 +54,15 @@ def deblock_inputs(case, w_mbs, h_mbs, device):
             *deblock_params(*(t[k] for k in DEBLOCK_STATE), w_mbs, h_mbs))
 
 
-def intra_case(seed, w_mbs, h_mbs, all_intra=False) -> dict:
+def intra_case(seed, w_mbs, h_mbs, all_intra=False,
+               intra_share=None) -> dict:
     """Random conformant intra frame state: availability consistent with
     the grid plus random above-right drops, and only modes whose
     neighbours are available (what an encoder can emit). all_intra
     redraws the MB classes from {I4x4, I16x16} after the JAX test's
-    draws, for a picture with no inter MB."""
+    draws, for a picture with no inter MB; intra_share instead makes
+    that share of the MBs intra and the rest inter (class 2), as in a P
+    picture."""
     rng = np.random.default_rng(seed)
     n = w_mbs * h_mbs
     H, W = h_mbs * 16, w_mbs * 16
@@ -94,6 +97,9 @@ def intra_case(seed, w_mbs, h_mbs, all_intra=False) -> dict:
     resid_chroma = rng.integers(-200, 200, (n, 2, 8, 8)).astype(np.int32)
     if all_intra:
         mb_class = rng.integers(3, 5, n).astype(np.int32)
+    elif intra_share is not None:
+        mb_class = np.where(rng.random(n) < intra_share,
+                            rng.integers(3, 5, n), 2).astype(np.int32)
     return dict(y=y, cb=cb, cr=cr, mb_class=mb_class, i4_modes=i4_modes,
                 i4_avail=i4_avail, mb_avail=mb_avail, i16_mode=i16_mode,
                 chroma_mode=chroma_mode, resid_luma=resid_luma,
@@ -111,12 +117,16 @@ def intra_inputs(case, device):
     return (t["y"], t["cb"], t["cr"], *(t[k] for k in INTRA_STATE))
 
 
-def padded_intra_ids(case, pad, device) -> torch.Tensor:
-    """The case's intra MB ids in raster (decode) order followed by `pad`
-    padding ids (nMB), as the front-end's padded list arrives."""
+def padded_intra_ids(case, pad, device, shuffle_seed=None) -> torch.Tensor:
+    """The case's intra MB ids in raster order followed by `pad` padding
+    ids (nMB), as the front-end's padded list arrives; with shuffle_seed
+    the ids come in a seeded random order (one the front-end never
+    ships, which the list kernel must walk all the same)."""
     mb_class = case["mb_class"]
     n = mb_class.shape[0]
     ids = np.flatnonzero((mb_class == 3) | (mb_class == 4))
+    if shuffle_seed is not None:
+        ids = np.random.default_rng(shuffle_seed).permutation(ids)
     ids = np.concatenate([ids, np.full(pad, n)]).astype(np.int32)
     return torch.from_numpy(ids).to(device)
 

@@ -10,6 +10,10 @@ JAX, which the port's GPU machine does not have; run there with
       -o addopts=""
 """
 
+import subprocess
+import sys
+from pathlib import Path
+
 import pytest
 import torch
 
@@ -58,8 +62,11 @@ def _assert_planes_equal(got, want):
         assert torch.equal(g, w), name
 
 
+# the narrowest frame K1 takes (the longest chain per MB), one row, 1080p
 @pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (9, 5)),
-                                       (2, (3, 7)), (3, (20, 12))])
+                                       (2, (3, 7)), (3, (20, 12)),
+                                       (10, (3, 40)), (11, (40, 1)),
+                                       (12, (120, 68))])
 def test_deblock_wavefront_kernel(dev, seed, dims):
     args = deblock_inputs(deblock_case(seed, *dims), *dims, dev)
     before = _kernels.LAUNCHES["deblock_wf"]
@@ -91,6 +98,108 @@ def test_intra_list_kernel(dev, seed, dims, pad):
                            *_clone_planes(args)[3:], dims[0])
     _assert_planes_equal(got, want)
     assert _kernels.LAUNCHES["intra_list"] == before + 1
+
+
+def _intra_list_case(kind):
+    """(case, dims, padding, shuffle seed) of each kind of list K2 must
+    walk: a shuffled order (one the front-end never ships), a sparse 1080p
+    list (~3% intra, a P picture's share), padding only, and a dense
+    40x23 all-intra list padded to its cap."""
+    return {
+        "shuffled": (intra_case(2, 20, 12), (20, 12), 7, 2),
+        "sparse": (intra_case(3, 120, 68, intra_share=0.03), (120, 68),
+                   200, None),
+        "padding": (intra_case(4, 6, 4, intra_share=0.0), (6, 4), 16,
+                    None),
+        "dense": (intra_case(5, 40, 23, all_intra=True), (40, 23), 104,
+                  None)}[kind]
+
+
+@pytest.mark.parametrize("kind", ["shuffled", "sparse", "padding", "dense"])
+def test_intra_list_kernel_lists(dev, kind):
+    case, dims, pad, shuffle = _intra_list_case(kind)
+    args = intra_inputs(case, dev)
+    ids = padded_intra_ids(case, pad, dev, shuffle_seed=shuffle)
+    before = _kernels.LAUNCHES["intra_list"]
+    got = intra_pass_cuda(*_clone_planes(args), *dims, intra_ids=ids)
+    want = intra_pass_list(*_clone_planes(args)[:3], ids,
+                           *_clone_planes(args)[3:], dims[0])
+    _assert_planes_equal(got, want)
+    assert _kernels.LAUNCHES["intra_list"] == before + 1
+
+
+def _replays_equal(kernel, args, want, replays):
+    """Capture one call of kernel(*planes, ...) in a CUDA graph and replay
+    it on fresh copies of the planes; every replay equals `want`. A race
+    between the blocks of a dependency-driven kernel shows as a replay
+    that differs."""
+    static = _clone_planes(args)
+    kernel(*_clone_planes(args))           # warm: libraries, tables
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kernel(*static)
+    for k in range(replays):
+        for dst, src in zip(static[:3], args[:3]):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w, name in zip(static[:3], want, ("y", "cb", "cr")):
+            assert torch.equal(g, w), f"replay {k} {name}"
+
+
+def test_deblock_wavefront_kernel_graph_replays(dev):
+    dims = (120, 68)
+    args = deblock_inputs(deblock_case(13, *dims), *dims, dev)
+    want = deblock_wavefront_plain(*_clone_planes(args), *dims)
+    _replays_equal(lambda *a: deblock_frame_wavefront_from_bs(*a, *dims),
+                   args, want, 50)
+
+
+@pytest.mark.parametrize("kind", ["sparse", "dense"])
+def test_intra_list_kernel_graph_replays(dev, kind):
+    case, dims, pad, shuffle = _intra_list_case(kind)
+    args = intra_inputs(case, dev)
+    ids = padded_intra_ids(case, pad, dev, shuffle_seed=shuffle)
+    want = intra_pass_list(*_clone_planes(args)[:3], ids,
+                           *_clone_planes(args)[3:], dims[0])
+    _replays_equal(lambda *a: intra_pass_cuda(*a, *dims, intra_ids=ids),
+                   args, want, 50)
+
+
+# K2 with MB 0's position prefilled with -1 instead of INT32_MAX: its
+# entry then reads as a repeat and is skipped without a done flag, while
+# its right neighbour MB 1, listed after it, waits for that flag forever
+_DEADLOCK = """
+import torch
+from h264bsd_tpu_torch.ops import _kernels
+from h264bsd_tpu_torch.ops.cuda_intra import intra_args
+from h264bsd_tpu_torch.utils.kernel_cases import intra_case, intra_inputs
+dims = (2, 1)
+case = intra_case(0, *dims, all_intra=True)
+args = intra_inputs(case, torch.device("cuda"))
+ids = torch.arange(2, dtype=torch.int32, device="cuda")
+pos = torch.tensor([-1, 2 ** 31 - 1], dtype=torch.int32, device="cuda")
+sync = torch.zeros(3, dtype=torch.int32, device="cuda")
+ptrs, keep = intra_args(*args, *dims)
+_kernels.launch("h264_intra_list", args[0].device, *ptrs, ids.data_ptr(),
+                pos.data_ptr(), sync.data_ptr(), 2, *dims)
+try:
+    torch.cuda.synchronize()
+except RuntimeError as e:
+    print("raised:", e)
+"""
+
+
+def test_a_wait_that_never_ends_traps(dev):
+    """The bounded spin: a dependency that is never released aborts the
+    kernel after the spin's limit (2 s) instead of hanging the card, and
+    the fault is raised at the next synchronization. In a child process,
+    whose CUDA context the fault ends."""
+    out = subprocess.run([sys.executable, "-c", _DEADLOCK],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=Path(__file__).parents[1])
+    assert "raised:" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("dims", [(12, 9), (16, 3), (5, 11), (3, 2),
