@@ -3,9 +3,9 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card (the dependency-driven K1 and K2 also over 50
-CUDA-graph replays on fresh planes, a race check), decodes all-intra, P
-(IPPP and real motion), partial-loss and SEI streams through
+PyTorch version on the card (the dependency-driven K1, K2 and K7 also
+over 50 CUDA-graph replays on fresh planes, a race check), decodes
+all-intra, P (IPPP and real motion), partial-loss and SEI streams through
 decode_stream, Decoder.decode and StreamingDecoder (windowable frames
 replay one CUDA graph per frame shape) and checks every picture's
 checksum, and the SEI messages, against the values the JAX package
@@ -78,9 +78,11 @@ KERNELS = {
 # each kernel's CUDA functions (their names in the profiler's events) and
 # the decode phase whose pictures give its launches per frame
 DEVICE_FN = {k: (f"{k}_kernel",) for k in KERNELS}
-DEVICE_FN["residual_sparse"] = ("residual_dc_kernel",
-                                "residual_entries_kernel")
+DEVICE_FN["residual_sparse"] = ("residual_map_kernel", "residual_mb_kernel")
 DEVICE_FN["intra_list"] = ("intra_list_pos_kernel", "intra_list_kernel")
+# device work of a wrapper beside its kernels, by profiler event name
+# prefix: the residual stage's memset of its id map
+DEVICE_EXTRA = {"residual_sparse": "Memset"}
 PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
                    "intra_wf": "decode_720p_all_i",
                    "intra_list": "decode_1080p_motion",
@@ -131,31 +133,39 @@ def timed_ms(fn, args, reps):
     return total / reps
 
 
-def device_ms(fn, args, reps, name, launches_per_call):
+def device_ms(fn, args, reps, name, attempts=3):
     """Device time per call of kernel `name`, each of whose CUDA
-    functions launches `launches_per_call` times per call: for each, the
-    mean duration of its torch.profiler kernel events over `reps` calls on
-    fresh copies of the planes (the copies are other kernels, not
-    counted), times the launches per call, summed. The mean, not the sum,
-    because the profiler may drop an event (it recorded 19 of 20 launches
-    of K8 once). Returns (ms, events recorded per call)."""
+    functions launches once per call: for each, the mean duration of its
+    torch.profiler kernel events over `reps` calls on fresh copies of the
+    planes (the copies are other kernels, not counted), summed, plus the
+    wrapper's other device work of DEVICE_EXTRA per call. The mean, not
+    the sum, because the profiler may drop an event (it recorded 19 of 20
+    launches of K8 once, and none of 20 of K9 once): a profiled run that
+    recorded no event of a function is made again, up to `attempts`
+    runs. Returns (ms, kernel events recorded per call)."""
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        for _ in range(reps):
-            fn(*planes_copy(args))
-        torch.cuda.synchronize()
-    ms, recorded = 0.0, 0
-    for fn_name in DEVICE_FN[name]:
-        us = [e.time_range.end - e.time_range.start for e in prof.events()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.name.split("(")[0] == fn_name]
-        if not us:
-            raise AssertionError(f"{name}: the profiler recorded no device "
-                                 f"time of {fn_name}")
-        ms += sum(us) / len(us) / 1e3 * launches_per_call
-        recorded += len(us)
-    return ms, recorded / reps
+    for _ in range(attempts):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                fn(*planes_copy(args))
+            torch.cuda.synchronize()
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        us = {f: [e.time_range.end - e.time_range.start for e in dev
+                  if e.name.split("(")[0] == f] for f in DEVICE_FN[name]}
+        if all(us.values()):
+            break
+    else:
+        missing = [f for f, u in us.items() if not u]
+        raise AssertionError(f"{name}: the profiler recorded no device time "
+                             f"of {missing} in {attempts} runs")
+    ms = sum(sum(u) / len(u) for u in us.values()) / 1e3
+    extra = DEVICE_EXTRA.get(name)
+    if extra:
+        ms += sum(e.time_range.end - e.time_range.start for e in dev
+                  if e.name.startswith(extra)) / reps / 1e3
+    return ms, sum(len(u) for u in us.values()) / reps
 
 
 def nbytes(tensors):
@@ -291,10 +301,22 @@ def main() -> int:
               lambda *a: plain_intra_list(*a[:-1], ids=ids),
               kc.intra_inputs(case, dev), dims)
         checks[-1]["list"] = kind
-    for dims in [(12, 9), (16, 3), (5, 11), (3, 2), (20, 12)]:
+    for dims in [(12, 9), (16, 3), (5, 11), (3, 2), (20, 12), (120, 68)]:
         check("intra_wf", intra_pass_wavefront_cuda,
               intra_pass_wavefront_plain,
               kc.intra_inputs(kc.intra_case(7, *dims), dev), dims)
+    # every above-right bit set: Intra_4x4 blocks 5 and 13 read the copy
+    # of their MB taken before the 10-step chain (K7 and K2)
+    all_c = kc.intra_case(8, 120, 68)
+    all_c["i4_avail"] = all_c["i4_avail"] | 4
+    check("intra_wf", intra_pass_wavefront_cuda, intra_pass_wavefront_plain,
+          kc.intra_inputs(all_c, dev), (120, 68))
+    checks[-1]["case"] = "all_c"
+    ids = kc.padded_intra_ids(all_c, 0, dev)
+    check("intra_list", lambda *a: intra_pass_cuda(*a, intra_ids=ids),
+          lambda *a: plain_intra_list(*a[:-1], ids=ids),
+          kc.intra_inputs(all_c, dev), (120, 68))
+    checks[-1]["case"] = "all_c"
     # MC at the decode tests' size, a mid size and 1080p, 1, 4 and 16
     # slots; the exception kernel over the uniform grids, once with the
     # real entry count and once walking the padding too
@@ -323,7 +345,18 @@ def main() -> int:
               lambda *a: residual_planes_sparse(*a[:6], n),
               kc.case_inputs(kc.residual_case(seed, *dims),
                              kc.RESIDUAL_STATE, dev), dims)
-    # races: K1 and K2 replayed from a CUDA graph on fresh planes
+    # the fused stage's edge cases: ids in class order, nnz_dc-cleared
+    # Intra_16x16 MBs, chroma QP offsets of +-12, qp_y at 0 and 51
+    for qp, dims in ((None, (6, 4)), (0, (20, 12)), (51, (20, 12)),
+                     (None, (120, 68))):
+        n = dims[0] * dims[1]
+        check("residual_sparse",
+              lambda *a: residual_planes_sparse_cuda(*a[:6], n),
+              lambda *a: residual_planes_sparse(*a[:6], n),
+              kc.case_inputs(kc.residual_edge_case(4, *dims, qp=qp),
+                             kc.RESIDUAL_STATE, dev), dims)
+        checks[-1]["case"] = f"edge, qp {qp}"
+    # races: K1, K2 and K7 replayed from a CUDA graph on fresh planes
     races = []
 
     def race(name, kernel, plain, args, dims):
@@ -346,6 +379,9 @@ def main() -> int:
                  lambda *a: intra_pass_cuda(*a, intra_ids=ids),
                  lambda *a: plain_intra_list(*a[:-1], ids=ids),
                  kc.intra_inputs(case, dev), dims)
+    race("intra_wf", intra_pass_wavefront_cuda, intra_pass_wavefront_plain,
+         kc.intra_inputs(kc.intra_case(9, 120, 68, all_intra=True), dev),
+         (120, 68))
     emit({"phase": "kernels", "checks": checks, "graph_replays": races,
           "launches": dict(_kernels.LAUNCHES)})
 
@@ -614,12 +650,13 @@ def main() -> int:
     rows, extra_rows = [], []
 
     def time_kernel(name, kernel, plain, args, dims, bound, serial,
-                    plain_reps, extra=False):
-        """serial: the kernel's chain of dependent steps (diagonals for
-        K7, one CUDA launch each; MBs on the longest dependency chain
-        for K1 and K2, in their single launch; MBs walked by K8; 1 for
-        MC and K9). extra: a row at a second shape, kept out of the
-        kernels line."""
+                    plain_reps, extra=False, case=None):
+        """serial: the kernel's chain of dependent steps (MBs on the
+        longest dependency chain for K1, K2 and K7 -- for K1 and K7 the
+        anti-diagonals -- in their single launch; MBs walked by K8; 1
+        for MC and K9). extra: a row at a second shape, kept out of the
+        kernels line; case: what the row's inputs are, where not the
+        kernel's usual case."""
         got = kernel(*planes_copy(args), *dims)
         want = plain(*planes_copy(args), *dims)
         err = max_abs_err(got, want)
@@ -627,10 +664,8 @@ def main() -> int:
         if err:
             raise AssertionError(f"{name} at {dims}: kernel differs from "
                                  f"its plain version (max |err| {err})")
-        # launches per call of each of the kernel's CUDA functions
-        per_call = serial if name == "intra_wf" else 1
         ms, recorded = device_ms(lambda *a: kernel(*a, *dims), args, 20,
-                                 name, per_call)
+                                 name)
         event_ms = timed_ms(lambda *a: kernel(*a, *dims), args, 20)
         plain_ms = timed_ms(lambda *a: plain(*a, *dims), args, plain_reps)
         byt, ops = bound
@@ -644,9 +679,10 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": None, "dims": list(dims), "event_ms": event_ms,
             "launches_per_frame": per_frame[name],
-            "cuda_launches_per_call": per_call * len(DEVICE_FN[name]),
+            "cuda_launches_per_call": len(DEVICE_FN[name]),
             "profiled_launches_per_call": recorded,
-            "serial_steps": serial, "bytes": byt, "ops": ops})
+            "serial_steps": serial, "bytes": byt, "ops": ops,
+            **({"case": case} if case else {})})
 
     for seed, dims, extra in ((10, (120, 68), False), (11, (80, 45), True)):
         args = kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev)
@@ -654,11 +690,29 @@ def main() -> int:
                     deblock_wavefront_plain, args, dims,
                     deblock_bound(args, dims),
                     len([d for d in anti_diagonals(*dims) if d]), 1, extra)
-    dims = (80, 45)
-    args = kc.intra_inputs(kc.intra_case(12, *dims, all_intra=True), dev)
-    time_kernel("intra_wf", intra_pass_wavefront_cuda,
-                intra_pass_wavefront_plain, args, dims,
-                intra_bound(args, dims), len(anti_diagonals(*dims)), 2)
+    for dims, extra in (((80, 45), False), ((120, 68), True)):
+        args = kc.intra_inputs(kc.intra_case(12, *dims, all_intra=True),
+                               dev)
+        time_kernel("intra_wf", intra_pass_wavefront_cuda,
+                    intra_pass_wavefront_plain, args, dims,
+                    intra_bound(args, dims), len(anti_diagonals(*dims)), 2,
+                    extra)
+    # where K7's chain step goes: one-row frames have no waits, so their
+    # time over wm is the cost of an MB in a row, with every MB inter
+    # (skipped: staging and publishing only), Intra_16x16 or Intra_4x4;
+    # a frame 3 MBs wide adds to that a row-to-row hand-off per row
+    for label, dims, cls in (("all inter", (120, 1), 2),
+                             ("all I16x16", (120, 1), 4),
+                             ("all I4x4", (120, 1), 3),
+                             ("all-intra mix", (3, 68), None)):
+        case = kc.intra_case(17, *dims, all_intra=True)
+        if cls is not None:
+            case["mb_class"][:] = cls
+        args = kc.intra_inputs(case, dev)
+        time_kernel("intra_wf", intra_pass_wavefront_cuda,
+                    intra_pass_wavefront_plain, args, dims,
+                    intra_bound(args, dims), len(anti_diagonals(*dims)), 2,
+                    True, label)
     # K2 on the second picture (a P picture) of the 1080p motion stream,
     # and on a 40x23 all-intra frame
     motion = frame_state("motion_1080p", 1)
@@ -712,8 +766,10 @@ def main() -> int:
           "kernels": [{k: r[k] for k in ("name", "dims", "ms", "event_ms",
                                          "plain_ms", "bound_ms",
                                          "cuda_launches_per_call",
+                                         "profiled_launches_per_call",
                                          "serial_steps",
-                                         "launches_per_frame")}
+                                         "launches_per_frame", "case")
+                       if k in r}
                       for r in rows + extra_rows]})
 
     print(json.dumps({"kernels": rows}), flush=True)

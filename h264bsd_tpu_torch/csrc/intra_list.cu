@@ -25,11 +25,11 @@
 // critical path is the longest chain of listed neighbours (84 MBs on a
 // 40x23 all-intra frame, a few on a P picture's scattered intra MBs)
 // instead of the whole list. Before its wait a block stages the MB's
-// own inputs and the weight table into shared memory (intra_mb_stage);
-// after it, one L2 round trip copies the read rectangle, the 16 block
-// steps run on warp 0 in shared memory, and the MB is written back and
-// its flag released. Used where the frame has at most WF_THRESH intra
-// MBs, and for frames under 3 MBs wide.
+// own inputs and the weight table's taps into shared memory; after it,
+// one L2 round trip copies the read rectangle (intra_mb_copy_rect), the
+// 10 Intra_4x4 steps run on warp 0 in shared memory (intra_mb.cuh), and
+// the MB is written back and its flag released. Used where the frame has at
+// most WF_THRESH intra MBs, and for frames under 3 MBs wide.
 
 #include <cuda_runtime.h>
 
@@ -63,14 +63,17 @@ __constant__ int kNeighbour[8][2] = {{0, -1}, {-1, -1}, {-1, 0}, {-1, 1},
 __global__ void __launch_bounds__(INTRA_THREADS)
 intra_list_kernel(IntraArgs a, const int32_t* ids, const int32_t* pos,
                   int* sync) {
-  __shared__ IntraSmem s;
+  __shared__ int taps[I4_TAP_COUNT];
+  __shared__ IntraStage st;
+  __shared__ IntraRect rect;
   __shared__ int ticket;
   const int wm = a.width_mbs, hm = a.height_mbs, n_mbs = wm * hm;
   const int k = mb_take_ticket(sync + n_mbs, &ticket);
   const int mb = ids[k];
   // padding, a non-intra entry or a repeat: nothing waits on it
   if (!listed(a.mb_class, mb, n_mbs) || pos[mb] != k) return;
-  intra_mb_stage(a, mb, s);
+  intra_stage_taps(a, taps);
+  intra_stage_inputs(a, mb, st);
   const int t = threadIdx.x;
   if (t < 8) {
     const int r = mb / wm + kNeighbour[t][0], c = mb % wm + kNeighbour[t][1];
@@ -79,7 +82,10 @@ intra_list_kernel(IntraArgs a, const int32_t* ids, const int32_t* pos,
     }
   }
   __syncthreads();
-  intra_mb_reconstruct(a, mb, s);
+  intra_mb_copy_rect(a, mb, rect);
+  __syncthreads();
+  intra_mb_compute(a, mb, st, rect, taps);
+  intra_mb_store(a, mb, rect);
   mb_signal(sync + mb);
 }
 

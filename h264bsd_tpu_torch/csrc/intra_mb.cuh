@@ -3,30 +3,38 @@
 // (intra_wf.cu).
 //
 // Semantics are those of h264bsd_tpu_torch/ops/intra.py (and of the JAX
-// package's ops/intra.py it mirrors): Intra_4x4 blocks in zigzag order,
-// each predicted from already reconstructed pels, or Intra_16x16; then
-// both chroma planes; prediction + residual clipped to [0, 255].
+// package's ops/intra.py it mirrors): Intra_4x4 blocks, each predicted
+// from already reconstructed pels, or Intra_16x16; then both chroma
+// planes; prediction + residual clipped to [0, 255].
 //
-// Two phases. intra_mb_stage reads only the MB's own inputs -- class,
-// modes, availability, the 16x16 and 2x8x8 residuals -- and the 9x16x13
-// weight table into shared memory; it reads no pel, so a caller may run
-// it before the MB's neighbours are done. intra_mb_reconstruct then
-// copies the picture rectangle that all of the MB's (clamped) reads fall
-// into -- rows max(y-1,0)..y+15, columns max(x-1,0)..min(x+19,W-1), and
-// the chroma counterparts -- into shared memory with L2-only loads,
-// reconstructs there in place and writes the MB back, so a read that
-// clamps onto a pel of the MB itself sees that pel's current value, as in
-// the plain version. Every neighbour read clamps its address into the
-// picture, exactly as the plain version does; the clamped pels feed only
-// unavailable-neighbour paths. Nothing outside the MB is written, so the
-// copy is exact as long as no other MB writes the rectangle while this
-// one runs (the callers' schedules guarantee it: see intra_wf.cu and
-// intra_list.cu). Arithmetic is int32; the planes are uint8.
+// The MB works in shared memory on its read rectangle (IntraRect): luma
+// rows y-1..y+15 and columns x-1..x+19, chroma rows cy-1..cy+7 and
+// columns cx-1..cx+7, indexed from (y-1, x-1). Every neighbour read
+// clamps its address into the picture, exactly as the plain version
+// does (a clamped read lands on a pel of the MB itself or of the
+// rectangle; the clamped pels feed only unavailable-neighbour paths),
+// so rows or columns outside the picture are never read. A caller fills
+// the rectangle (intra_mb_copy_rect, or intra_wf.cu's sliding window),
+// intra_mb_compute reconstructs the MB there in place and
+// intra_mb_store writes it back; nothing outside the MB is written.
+// Arithmetic is int32; the planes are uint8.
 //
-// The block has INTRA_THREADS = 256 threads. Warp 0 runs the 16 zigzag
-// Intra_4x4 steps (16 lanes work, the warp meets at __syncwarp between
-// steps) while threads 128..255 compute the chroma pels; an Intra_16x16
-// MB takes one thread per luma pel.
+// The block has INTRA_THREADS = 256 threads. Warp 0 runs the Intra_4x4
+// chain while threads 128..255 compute the chroma pels; an Intra_16x16
+// MB takes one thread per luma pel. A chain step is short: each lane
+// loads one neighbour pel of its block and gathers its pel's (at most 3)
+// taps by shuffles. The chain walks the 16 blocks on
+// the anti-diagonals t = 2*by + bx of the MB's 4x4 block grid: 10 steps
+// of at most 2 blocks (lanes 0-15 the upper, 16-31 the lower block),
+// each block's left, above-left, above and above-right blocks on earlier
+// steps. The plain version walks the blocks in zigzag order, in which
+// raster blocks 5 and 13 read their above-right pels (raster blocks 2
+// and 10, row 3 / row 11, columns 8-11) before those are reconstructed;
+// here those blocks are already done, so the two blocks read the 2 x 4
+// pels from a copy taken before the chain starts. Every other read sees
+// the same state in both orders. (The front-end clears the above-right
+// bit of both blocks, so a conforming stream never reads those pels;
+// the copy keeps the kernel byte-equal for any availability bits.)
 
 #pragma once
 
@@ -55,21 +63,22 @@ struct IntraArgs {
   int height_mbs;
 };
 
-#define I4_WEIGHT_COUNT (9 * 16 * 13)
+#define I4_TAP_COUNT (9 * 16)
+#define FULL_MASK 0xffffffffu
 
-__constant__ int kZig2Ras[16] = {0, 1, 4, 5, 2, 3, 6, 7,
-                                 8, 9, 12, 13, 10, 11, 14, 15};
-
-struct IntraSmem {
-  int ly[17][21];               // luma rectangle
-  int lc[2][9][9];              // cb, cr rectangles
-  // staged by intra_mb_stage
-  int w[I4_WEIGHT_COUNT];
+// the MB's own inputs, staged in shared memory
+struct IntraStage {
   int res_l[256];               // (16, 16)
   int res_c[2][64];             // (2, 8, 8)
   int modes[16];                // clamped into 0..8
   int avail[16];
   int cls, mb_avail, i16_mode, chroma_mode;
+};
+
+// the read rectangles, from (y-1, x-1) and (cy-1, cx-1)
+struct IntraRect {
+  int ly[17][21];
+  int lc[2][9][9];
 };
 
 __device__ __forceinline__ int clip255(int v) {
@@ -88,14 +97,28 @@ __device__ __forceinline__ int dc_select(int avail, int both, int only_a,
   return (a && b) ? both : (a ? only_a : (b ? only_b : 128));
 }
 
-// Phase 1: MB `mb`'s own inputs and the weight table into shared memory.
-// Reads no pel. Called by all INTRA_THREADS threads; the first barrier of
-// intra_mb_reconstruct publishes what it writes.
-__device__ void intra_mb_stage(const IntraArgs& a, int mb, IntraSmem& s) {
-  const int t = threadIdx.x;
-  for (int i = t; i < I4_WEIGHT_COUNT; i += INTRA_THREADS) {
-    s.w[i] = a.i4_weights[i];
+// The weight table into shared memory as taps, by all INTRA_THREADS
+// threads: per mode and pel, the (at most 3) non-zero weights of its row,
+// 7 bits each, neighbour index | weight << 4 (a directional pel is
+// (x + 2y + z + 2) >> 2, (2x + 2y + 2) >> 2, (x + 3y + 2) >> 2 or a copy;
+// DC's rows are 0). The same sum as the row's dot product.
+__device__ __forceinline__ void intra_stage_taps(const IntraArgs& a,
+                                                 int* taps) {
+  for (int i = threadIdx.x; i < I4_TAP_COUNT; i += INTRA_THREADS) {
+    int packed = 0, k = 0;
+    for (int j = 0; j < 13; ++j) {
+      const int w = a.i4_weights[i * 13 + j];
+      if (w) packed |= (j | w << 4) << (7 * k++);
+    }
+    taps[i] = packed;
   }
+}
+
+// MB `mb`'s own inputs into shared memory. Reads no pel. Called by all
+// INTRA_THREADS threads; a barrier must follow before they are read.
+__device__ __forceinline__ void intra_stage_inputs(const IntraArgs& a, int mb,
+                                                   IntraStage& s) {
+  const int t = threadIdx.x;
   s.res_l[t] = a.resid_luma[mb * 256 + t];
   if (t < 128) s.res_c[t >> 6][t & 63] = a.resid_chroma[mb * 128 + t];
   if (t < 16) {
@@ -110,105 +133,163 @@ __device__ void intra_mb_stage(const IntraArgs& a, int mb, IntraSmem& s) {
   }
 }
 
-// Phase 2: reconstruct MB `mb` (staged by intra_mb_stage) in place.
-// Called by all INTRA_THREADS threads with the same `mb`; ends with the
-// MB's stores issued.
-__device__ void intra_mb_reconstruct(const IntraArgs& a, int mb,
-                                     IntraSmem& s) {
+// Copy MB `mb`'s whole read rectangle (the pels inside the picture) from
+// the planes into shared memory with L2-only loads; every load is made
+// before any store, so the copy costs one L2 round trip. Called by all
+// INTRA_THREADS threads; a barrier must follow.
+__device__ __forceinline__ void intra_mb_copy_rect(const IntraArgs& a, int mb,
+                                                   IntraRect& s) {
+  const int t = threadIdx.x;
+  const int W = a.width_mbs * 16, Wc = W / 2;
+  const int mx = (mb % a.width_mbs) * 16, my = (mb / a.width_mbs) * 16;
+  const int cx = mx / 2, cy = my / 2;
+  const int r0 = my > 0 ? my - 1 : 0, c0 = mx > 0 ? mx - 1 : 0;
+  const int c1 = min(mx + 19, W - 1);
+  const int nr = my + 16 - r0, nc = c1 - c0 + 1;
+  const int cr0 = cy > 0 ? cy - 1 : 0, cc0 = cx > 0 ? cx - 1 : 0;
+  const int cnr = cy + 8 - cr0, cnc = cx + 8 - cc0;
+  int v[3];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {         // 17 x 21 <= 2 x 256
+    const int i = t + j * INTRA_THREADS;
+    v[j] = i < nr * nc ? __ldcg(&a.y[(r0 + i / nc) * W + c0 + i % nc]) : 0;
+  }
+  const int jc = t % (cnr * cnc);       // 2 x 9 x 9 <= 256
+  const uint8_t* plane = t < cnr * cnc ? a.cb : a.cr;
+  v[2] = t < 2 * cnr * cnc
+             ? __ldcg(&plane[(cr0 + jc / cnc) * Wc + cc0 + jc % cnc]) : 0;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int i = t + j * INTRA_THREADS;
+    if (i < nr * nc) {
+      s.ly[r0 + i / nc - (my - 1)][c0 + i % nc - (mx - 1)] = v[j];
+    }
+  }
+  if (t < 2 * cnr * cnc) {
+    s.lc[t / (cnr * cnc)][cr0 + jc / cnc - (cy - 1)]
+        [cc0 + jc % cnc - (cx - 1)] = v[2];
+  }
+}
+
+// Reconstruct MB `mb` in its rectangle `s`, from its staged inputs `st`
+// and the staged taps `taps`. Called by all INTRA_THREADS threads with
+// the rectangle and the stage published by a barrier; ends with the MB's
+// pels in the rectangle, published by a barrier.
+__device__ void intra_mb_compute(const IntraArgs& a, int mb,
+                                 const IntraStage& st, IntraRect& s,
+                                 const int* taps) {
   const int t = threadIdx.x;
   const int W = a.width_mbs * 16, H = a.height_mbs * 16;
   const int Wc = W / 2, Hc = H / 2;
   const int mx = (mb % a.width_mbs) * 16, my = (mb / a.width_mbs) * 16;
   const int cx = mx / 2, cy = my / 2;
 
-  // ---- copy the read rectangles into shared memory: every load is
-  // issued before any store, so the copy costs one L2 round trip
-  const int r0 = my > 0 ? my - 1 : 0, c0 = mx > 0 ? mx - 1 : 0;
-  const int c1 = min(mx + 19, W - 1);
-  const int nr = my + 16 - r0, nc = c1 - c0 + 1;
-  const int cr0 = cy > 0 ? cy - 1 : 0, cc0 = cx > 0 ? cx - 1 : 0;
-  const int cnr = cy + 8 - cr0, cnc = cx + 8 - cc0;
-  {
-    int v[3];
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {       // 17 x 21 <= 2 x 256
-      const int i = t + j * INTRA_THREADS;
-      v[j] = i < nr * nc ? __ldcg(&a.y[(r0 + i / nc) * W + c0 + i % nc]) : 0;
-    }
-    const int jc = t % (cnr * cnc);     // 2 x 9 x 9 <= 256
-    const uint8_t* plane = t < cnr * cnc ? a.cb : a.cr;
-    v[2] = t < 2 * cnr * cnc
-               ? __ldcg(&plane[(cr0 + jc / cnc) * Wc + cc0 + jc % cnc]) : 0;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int i = t + j * INTRA_THREADS;
-      if (i < nr * nc) s.ly[i / nc][i % nc] = v[j];
-    }
-    if (t < 2 * cnr * cnc) s.lc[t / (cnr * cnc)][jc / cnc][jc % cnc] = v[2];
-  }
-  __syncthreads();
-
-  // picture-coordinate access into the rectangles, addresses clamped
+  // picture-coordinate access into the rectangle, addresses clamped
   auto Y = [&](int r, int c) -> int& {
-    return s.ly[clampi(r, 0, H - 1) - r0][clampi(c, 0, W - 1) - c0];
+    return s.ly[clampi(r, 0, H - 1) - (my - 1)]
+               [clampi(c, 0, W - 1) - (mx - 1)];
   };
-  const int mb_avail = s.mb_avail;
-  const bool i4 = s.cls == 3;
+  const int mb_avail = st.mb_avail;
+  const bool i4 = st.cls == 3;
 
   // ---- luma
   int lval = 0;
   if (i4) {
-    // Intra_4x4: 16 blocks in zigzag order on warp 0, 16 lanes per block
+    // Intra_4x4 on warp 0: step k runs the blocks with 2*by + bx = k,
+    // the upper one on lanes 0-15, the lower one on lanes 16-31. Lane j
+    // of a half loads neighbour j of its block (j < 13); every lane then
+    // gathers its pel's (at most 3) taps and the DC sums by shuffles.
+    // Whatever a step needs that is not a pel is read before the chain,
+    // so a step is one shared-memory load, the shuffles, a little
+    // arithmetic and one store.
     if (t < 32) {
-      const int px = t & 3, py = (t >> 2) & 3;
-      for (int z = 0; z < 16; ++z) {
-        const int rb = kZig2Ras[z];
-        const int bx = mx + (rb & 3) * 4, by = my + (rb >> 2) * 4;
-        int val = 0;
-        if (t < 16) {
-          const int mode = s.modes[rb];
-          const int av = s.avail[rb];
-          int n[13];
-          for (int j = 0; j < 9; ++j) n[j] = Y(by - 1, bx - 1 + j);
-          for (int j = 0; j < 4; ++j) n[9 + j] = Y(by + j, bx - 1);
-          if (!(av & 4)) {        // above-right missing: replicate above[3]
-            for (int j = 5; j < 9; ++j) n[j] = n[4];
-          }
-          int pred;
-          if (mode == 2) {
-            const int sa = n[1] + n[2] + n[3] + n[4];
-            const int sl = n[9] + n[10] + n[11] + n[12];
-            pred = dc_select(av, (sa + sl + 4) >> 3, (sl + 2) >> 2,
-                             (sa + 2) >> 2);
+      const int slot = t >> 4, q = t & 15, px = q & 3, py = q >> 2;
+      const int half = t & 16;
+      int* ly = &s.ly[0][0];
+      auto at = [&](int r, int c) {   // rectangle offset, clamped
+        return (clampi(r, 0, H - 1) - (my - 1)) * 21 + clampi(c, 0, W - 1) -
+               (mx - 1);
+      };
+      // blocks 5 and 13 (both lower blocks of their steps) read their
+      // above-right pels (neighbours 5-8) as the zigzag order finds
+      // them: not yet reconstructed
+      int pre5 = 0, pre13 = 0;
+      if (slot == 1 && q >= 5 && q <= 8) {
+        pre5 = ly[at(my + 3, mx + 3 + q)];
+        pre13 = ly[at(my + 11, mx + 3 + q)];
+      }
+      // per step: the offset of the lane's neighbour (-1 none, -2 the
+      // copy), its pel's taps | DC flag << 21 | A and B bits << 22, the
+      // offset of its pel (-1 none) and its residual
+      int src[10], tap[10], dst[10], res[10];
+#pragma unroll
+      for (int k = 0; k < 10; ++k) {
+        const int bry = max(0, (k - 2) >> 1) + slot;
+        const int brx = k - 2 * bry;
+        const bool on = brx >= 0 && bry < 4;
+        const int rb = on ? bry * 4 + brx : 0;
+        const int bx = mx + brx * 4, by = my + bry * 4;
+        const int mode = st.modes[rb];
+        const int av = st.avail[rb];
+        tap[k] = taps[mode * 16 + q] | (mode == 2) << 21 | (av & 3) << 22;
+        // neighbour q of the block: [D, above*4, above-right*4, left*4];
+        // above-right missing: above[3] replicated
+        src[k] = -1;
+        if (on && q < 13) {
+          if (q >= 5 && q <= 8 && (av & 4) && (rb == 5 || rb == 13)) {
+            src[k] = -2;
+          } else if (q < 9) {
+            src[k] = at(by - 1, bx - 1 + ((q >= 5 && !(av & 4)) ? 4 : q));
           } else {
-            const int* w = s.w + (mode * 16 + 4 * py + px) * 13;
-            int acc = 0;
-            for (int j = 0; j < 13; ++j) acc += w[j] * n[j];
-            pred = (acc + 2) >> 2;
+            src[k] = at(by + q - 9, bx - 1);
           }
-          val = clip255(pred + s.res_l[(by - my + py) * 16 + bx - mx + px]);
         }
-        __syncwarp();             // a block may read its own pels (clamps)
-        if (t < 16) Y(by + py, bx + px) = val;
+        dst[k] = on ? at(by + py, bx + px) : -1;
+        res[k] = on ? st.res_l[(by - my + py) * 16 + bx - mx + px] : 0;
+      }
+#pragma unroll
+      for (int k = 0; k < 10; ++k) {
+        const int nb = src[k] >= 0 ? ly[src[k]]
+                                   : (src[k] == -2 ? (k == 3 ? pre5 : pre13)
+                                                   : 0);
+        const int tp = tap[k];
+        const int v0 = __shfl_sync(FULL_MASK, nb, half + (tp & 15));
+        const int v1 = __shfl_sync(FULL_MASK, nb, half + ((tp >> 7) & 15));
+        const int v2 = __shfl_sync(FULL_MASK, nb, half + ((tp >> 14) & 15));
+        int sa = 0, sl = 0;
+#pragma unroll
+        for (int j = 1; j <= 4; ++j) {
+          sa += __shfl_sync(FULL_MASK, nb, half + j);
+          sl += __shfl_sync(FULL_MASK, nb, half + 8 + j);
+        }
+        // every lane's reads of this step are done (the shuffles
+        // consumed them), so the block may now write its own pels
+        const int pred =
+            (tp >> 21) & 1
+                ? dc_select(tp >> 22, (sa + sl + 4) >> 3, (sl + 2) >> 2,
+                            (sa + 2) >> 2)
+                : (((tp >> 4) & 7) * v0 + ((tp >> 11) & 7) * v1 +
+                   ((tp >> 18) & 7) * v2 + 2) >> 2;
+        if (dst[k] >= 0) ly[dst[k]] = clip255(pred + res[k]);
         __syncwarp();
       }
     }
   } else {
     // Intra_16x16, one thread per pel
     const int px = t & 15, py = t >> 4;
-    const int mode = s.i16_mode;
+    const int mode = st.i16_mode;
     const int corner = Y(my - 1, mx - 1);
-    int sa = 0, sl = 0;
-    for (int j = 0; j < 16; ++j) {
-      sa += Y(my - 1, mx + j);
-      sl += Y(my + j, mx - 1);
-    }
     int pred;
     if (mode == 0) {
       pred = Y(my - 1, mx + px);
     } else if (mode == 1) {
       pred = Y(my + py, mx - 1);
     } else if (mode == 2) {
+      int sa = 0, sl = 0;
+      for (int j = 0; j < 16; ++j) {
+        sa += Y(my - 1, mx + j);
+        sl += Y(my + j, mx - 1);
+      }
       pred = dc_select(mb_avail, (sa + sl + 16) >> 5, (sl + 8) >> 4,
                        (sa + 8) >> 4);
     } else {
@@ -225,7 +306,7 @@ __device__ void intra_mb_reconstruct(const IntraArgs& a, int mb,
       c = (5 * c + 32) >> 6;
       pred = clip255((av + b * (px - 7) + c * (py - 7) + 16) >> 5);
     }
-    lval = clip255(pred + s.res_l[py * 16 + px]);
+    lval = clip255(pred + st.res_l[py * 16 + px]);
   }
 
   // ---- chroma: threads 128..191 Cb, 192..255 Cr, one pel each; on an
@@ -233,9 +314,10 @@ __device__ void intra_mb_reconstruct(const IntraArgs& a, int mb,
   const int cp = (t >> 6) & 1, cpx = t & 7, cpy = (t >> 3) & 7;
   int cval = 0;
   if (t >= 128) {
-    const int mode = s.chroma_mode;
+    const int mode = st.chroma_mode;
     auto C = [&](int r, int c) -> int {
-      return s.lc[cp][clampi(r, 0, Hc - 1) - cr0][clampi(c, 0, Wc - 1) - cc0];
+      return s.lc[cp][clampi(r, 0, Hc - 1) - (cy - 1)]
+                  [clampi(c, 0, Wc - 1) - (cx - 1)];
     };
     const int corner = C(cy - 1, cx - 1);
     int pred;
@@ -275,23 +357,35 @@ __device__ void intra_mb_reconstruct(const IntraArgs& a, int mb,
       c = (17 * c + 16) >> 5;
       pred = clip255((av + 16 + b * (cpx - 3) + c * (cpy - 3)) >> 5);
     }
-    cval = clip255(pred + s.res_c[cp][cpy * 8 + cpx]);
+    cval = clip255(pred + st.res_c[cp][cpy * 8 + cpx]);
   }
   __syncthreads();                // every read of a clamped own pel is done
-  if (!i4) Y(my + (t >> 4), mx + (t & 15)) = lval;
-  if (t >= 128) s.lc[cp][cy + cpy - cr0][cx + cpx - cc0] = cval;
+  if (!i4) s.ly[1 + (t >> 4)][1 + (t & 15)] = lval;
+  if (t >= 128) s.lc[cp][1 + cpy][1 + cpx] = cval;
   __syncthreads();
+}
 
-  // ---- write the MB back (L2, as the neighbours read it)
-  {
-    const int ry = my - r0, rx = mx - c0;
-    __stcg(&a.y[(my + (t >> 4)) * W + mx + (t & 15)],
-           uint8_t(s.ly[ry + (t >> 4)][rx + (t & 15)]));
-    if (t < 128) {
-      const int p = t >> 6, j = t & 63;
-      uint8_t* plane = p ? a.cr : a.cb;
-      __stcg(&plane[(cy + (j >> 3)) * Wc + cx + (j & 7)],
-             uint8_t(s.lc[p][cy - cr0 + (j >> 3)][cx - cc0 + (j & 7)]));
-    }
+// Write MB `mb` from its rectangle back to the planes (L2, as the
+// neighbours read it), four pels per store. Called by all INTRA_THREADS
+// threads after intra_mb_compute.
+__device__ __forceinline__ void intra_mb_store(const IntraArgs& a, int mb,
+                                               const IntraRect& s) {
+  const int t = threadIdx.x;
+  const int W = a.width_mbs * 16, Wc = W / 2;
+  const int mx = (mb % a.width_mbs) * 16, my = (mb / a.width_mbs) * 16;
+  auto pack = [](const int* p) -> uint32_t {
+    return uint32_t(p[0]) | uint32_t(p[1]) << 8 | uint32_t(p[2]) << 16 |
+           uint32_t(p[3]) << 24;
+  };
+  if (t < 64) {                   // luma: 16 rows x 4 words
+    const int r = t >> 2, q = t & 3;
+    __stcg(reinterpret_cast<uint32_t*>(&a.y[(my + r) * W + mx + 4 * q]),
+           pack(&s.ly[1 + r][1 + 4 * q]));
+  } else if (t < 96) {            // chroma: 2 planes x 8 rows x 2 words
+    const int j = t - 64, p = j >> 4, r = (j >> 1) & 7, q = j & 1;
+    uint8_t* plane = p ? a.cr : a.cb;
+    __stcg(reinterpret_cast<uint32_t*>(
+               &plane[(my / 2 + r) * Wc + mx / 2 + 4 * q]),
+           pack(&s.lc[p][1 + r][1 + 4 * q]));
   }
 }

@@ -9,31 +9,54 @@
 //
 // h264_idct_blocks is K9 with the JAX package's signature: (N, 16) int32
 // levels and scales, (N,) int32 ext_dc and skip_dc, (N, 16) int32 out.
+// One thread per block, everything in registers; consecutive threads take
+// consecutive blocks (the TPU version puts the 16 positions in sublanes
+// and 512 blocks in lanes).
 //
-// h264_residual_sparse is the port's residual stage (the plain version is
-// residual_planes_sparse, h264bsd_tpu_torch/ops/transform.py).
-// residual_dc_kernel first writes every block's DC-only residual
-// (dc + 32) >> 6 into the per-MB residual planes (the reference's DC-only
-// path, transform.c:191-229); then residual_entries_kernel runs the block
-// code on every shipped AC block (id = mb*26 + b, b < 24; ids past nMB*26
-// are padding), its scales from its MB's luma or chroma QP with
-// LEVEL_SCALE_POS in constant memory, and writes the block over the base,
-// after it on the same stream. Its DC term is added to position 0: the
-// butterflies pass position 0 to every output unshifted, so this equals
-// the plain version, which adds the DC after them, and equals K9's
-// replacement, because an Intra_16x16 or chroma AC block has no level at
-// position 0.
+// h264_residual_sparse is the port's whole residual stage (the plain
+// version is residual_planes_sparse, h264bsd_tpu_torch/ops/transform.py,
+// with its DC half residual_dc), in one memset and two launches:
+// - residual_map_kernel fills slot[mb*26 + b] = e for every valid entry
+//   e of the sparse stream (the table is memset to -1 first; ids below 0
+//   or from nMB*26 on are padding). A map is needed because the
+//   front-end writes the ids class by class, not globally sorted.
+// - residual_mb_kernel runs one warp per MB. Lanes 0-15 hold the luma DC
+//   levels of its b = 24 entry, lanes 16-23 the chroma DC levels of its
+//   b = 25 entry (0 without one). On an Intra_16x16 MB whose nnz_dc[0] is
+//   set the 4x4 Hadamard runs across lanes 0-15 by shuffles, with the
+//   LEVEL_SCALE_DC scaling (reference transform.c:255-338); otherwise the
+//   DC passes through, and an MB that is not Intra_16x16 has no luma DC.
+//   The chroma QP is QP_C[clip(qp_y + chroma_qp_offset, 0, 51)]; the 2x2
+//   chroma transform and its scaling (transform.c:359-401) run where
+//   nnz_dc[1] or nnz_dc[2] is set. Then lane b < 24 makes block b: its
+//   shipped AC entry dequantized and transformed with the DC added to
+//   position 0 (the butterflies pass position 0 to every output
+//   unshifted, so this equals the plain version, which adds the DC after
+//   them), or, without an entry, the DC-only residual (dc + 32) >> 6 (the
+//   reference's DC-only path, transform.c:191-229). The warp assembles the
+//   MB's 384 residuals in shared memory and writes them once, 16 bytes a
+//   lane, into res_l (nMB, 16, 16) and res_c (nMB, 2, 8, 8).
 //
 // Bound: bytes. A block reads 16 levels and writes 16 int32 residuals
 // (~100 bytes) for ~120 int32 operations, far below Hopper's ~5 int32
-// operations per byte of HBM bandwidth. Design: one thread per block,
-// everything in registers, no shared memory. The TPU version puts the 16
-// positions in sublanes and 512 blocks in lanes; on the GPU consecutive
-// threads take consecutive blocks.
+// operations per byte of HBM bandwidth. The residual stage writes each
+// output once and reads each entry, DC entries included, once; the DC
+// transforms that ran as ~60 PyTorch launches stay in registers.
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+// chroma QP by clip(qp_y + chroma_qp_offset, 0, 51) (spec Table 8-15,
+// reference h264bsd_util.c:53; ops/transform.py QP_C)
+__constant__ int kQpC[52] = {
+    0,  1,  2,  3,  4,  5,  6,  7,  8,  9,  10, 11, 12, 13, 14, 15, 16, 17,
+    18, 19, 20, 21, 22, 23, 24, 25, 26, 27, 28, 29, 29, 30, 31, 32, 32, 33,
+    34, 34, 35, 35, 36, 36, 37, 37, 37, 38, 38, 38, 39, 39, 39, 39};
+
+// levelScale[qp % 6][0], the DC transforms' multiplier (ops/transform.py
+// LEVEL_SCALE_DC)
+__constant__ int kLevelScaleDc[6] = {10, 11, 13, 14, 16, 18};
 
 // levelScale[qp % 6][SCALE_IDX[pos]] per raster position (spec 8.5.9,
 // reference transform.c:58-59; ops/transform.py LEVEL_SCALE_POS)
@@ -86,53 +109,130 @@ __global__ void __launch_bounds__(256) idct_blocks_kernel(
   for (int i = 0; i < 16; ++i) out[k * 16 + i] = d[i];
 }
 
-// Offset of raster block b's pel (r, c) in its MB's residual plane:
-// luma (16, 16) for b < 16, else chroma (2, 8, 8), b = 16 + 4*plane + k.
+// Offset of raster block b's pel (r, c) in its MB's 384 residuals: luma
+// (16, 16) for b < 16, then chroma (2, 8, 8), b = 16 + 4*plane + k.
 __device__ __forceinline__ int block_pel(int b, int r, int c) {
   if (b < 16) return ((b >> 2) * 4 + r) * 16 + (b & 3) * 4 + c;
   const int k = (b - 16) & 3;
-  return ((b - 16) >> 2) * 64 + ((k >> 1) * 4 + r) * 8 + (k & 1) * 4 + c;
+  return 256 + ((b - 16) >> 2) * 64 + ((k >> 1) * 4 + r) * 8 + (k & 1) * 4 +
+         c;
 }
 
-// Every block's DC-only residual, one thread per pel: (nMB * 384).
-__global__ void __launch_bounds__(256) residual_dc_kernel(
-    const int32_t* dc, int32_t* res_l, int32_t* res_c, int n_mbs) {
-  const int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= n_mbs * 384) return;
-  const int mb = t / 384, p = t - mb * 384;
-  if (p < 256) {
-    const int b = (p >> 6) * 4 + ((p & 15) >> 2);
-    res_l[mb * 256 + p] = (dc[mb * 24 + b] + 32) >> 6;
-  } else {
-    const int q = p - 256, r = q & 63;
-    const int k = ((r >> 3) >> 2) * 2 + ((r & 7) >> 2);
-    res_c[mb * 128 + q] = (dc[mb * 24 + 16 + (q >> 6) * 4 + k] + 32) >> 6;
-  }
-}
-
-// The shipped AC blocks over the DC-only base, one thread per entry.
-__global__ void __launch_bounds__(256) residual_entries_kernel(
-    const int32_t* ids, const int16_t* levels, const int32_t* qp_y,
-    const int32_t* qp_c, const int32_t* dc, int32_t* res_l, int32_t* res_c,
-    int n_entries, int n_mbs) {
+// slot[ids[e]] = e for every valid entry (slot memset to -1 before)
+__global__ void __launch_bounds__(256) residual_map_kernel(
+    const int64_t* ids, int n_entries, int n_ids, int* slot) {
   const int e = blockIdx.x * blockDim.x + threadIdx.x;
   if (e >= n_entries) return;
-  const int id = ids[e];
-  if (id < 0 || id >= n_mbs * 26) return;
-  const int mb = id / 26, b = id - mb * 26;
-  if (b >= 24) return;                  // DC entries: in dc already
-  const int qp = b < 16 ? qp_y[mb] : qp_c[mb];
-  const int* scale = kLevelScalePos[qp % 6];
-  const int shift = qp / 6;
-  int d[16];
+  const int64_t id = ids[e];
+  if (id >= 0 && id < n_ids) slot[id] = e;
+}
+
+// output k of the 4-point Hadamard pass of the luma DC transform
+// (ops/transform.py _butterfly with half=False)
+__device__ __forceinline__ int hadamard4(const int d[4], int k) {
+  const int t0 = d[0] + d[2], t1 = d[0] - d[2], t2 = d[1] - d[3],
+            t3 = d[1] + d[3];
+  return k == 0 ? t0 + t3 : (k == 1 ? t1 + t2 : (k == 2 ? t1 - t2 : t0 - t3));
+}
+
+// output k of the 2x2 chroma DC transform (ops/transform.py
+// chroma_dc_transform): [t0 + t3, t0 - t3, t1 + t2, t1 - t2]
+__device__ __forceinline__ int chroma2x2(const int d[4], int k) {
+  const int t0 = d[0] + d[2], t1 = d[0] - d[2], t2 = d[1] - d[3],
+            t3 = d[1] + d[3];
+  return k == 0 ? t0 + t3 : (k == 1 ? t0 - t3 : (k == 2 ? t1 + t2 : t1 - t2));
+}
+
+#define RES_WARPS 8
+#define FULL_MASK 0xffffffffu
+
+// One warp per MB: the DC transforms, the 24 blocks, one coalesced write.
+__global__ void __launch_bounds__(RES_WARPS * 32) residual_mb_kernel(
+    const int16_t* levels, const uint8_t* qp_y, const int8_t* cqo,
+    const int32_t* nnz_dc, const uint8_t* is_i16, const int* slot,
+    int32_t* res_l, int32_t* res_c, int n_mbs) {
+  __shared__ __align__(16) int tile[RES_WARPS][384];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int mb = blockIdx.x * RES_WARPS + wid;
+  if (mb >= n_mbs) return;                  // the whole warp
+  const int e = lane < 26 ? slot[mb * 26 + lane] : -1;
+  const int qp = qp_y[mb];
+  const int qpc = kQpC[min(max(qp + cqo[mb], 0), 51)];
+  const int e_l = __shfl_sync(FULL_MASK, e, 24);
+  const int e_c = __shfl_sync(FULL_MASK, e, 25);
+  // the untransformed DC of the lane's block: luma DC level `lane`,
+  // chroma DC level lane - 16 (cb 0-3, cr 0-3)
+  int raw = 0;
+  if (lane < 16) {
+    if (e_l >= 0) raw = levels[e_l * 16 + lane];
+  } else if (lane < 24) {
+    if (e_c >= 0) raw = levels[e_c * 16 + lane - 16];
+  }
+  // 4x4 Hadamard: along each row of 4 lanes, then down the columns;
+  // the 2x2 chroma transform within each group of 4 lanes
+  int g[4], h[4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
-    d[i] = (int)levels[e * 16 + i] * (scale[i] << shift);
-  d[0] += dc[mb * 24 + b];
-  idct_block(d);
-  int32_t* out = b < 16 ? res_l + mb * 256 : res_c + mb * 128;
+  for (int j = 0; j < 4; ++j) {
+    g[j] = __shfl_sync(FULL_MASK, raw, (lane & ~3) + j);
+  }
+  const int hx = hadamard4(g, lane & 3);
 #pragma unroll
-  for (int i = 0; i < 16; ++i) out[block_pel(b, i >> 2, i & 3)] = d[i];
+  for (int i = 0; i < 4; ++i) {
+    h[i] = __shfl_sync(FULL_MASK, hx, (lane & 3) + 4 * i);
+  }
+  int dc = 0;
+  if (lane < 16) {
+    if (is_i16[mb]) {
+      dc = raw;
+      if (nnz_dc[mb * 3] > 0) {
+        const int v = hadamard4(h, (lane >> 2) & 3);
+        const int lev = kLevelScaleDc[qp % 6], qd = qp / 6;
+        dc = qp >= 12 ? v * (lev << (qd - 2))
+                      : (v * lev + (qd == 1 ? 1 : 2)) >> (2 - qd);
+      }
+    }
+  } else if (lane < 24) {
+    dc = raw;
+    if (nnz_dc[mb * 3 + 1] > 0 || nnz_dc[mb * 3 + 2] > 0) {
+      const int v = chroma2x2(g, lane & 3);
+      const int lev = kLevelScaleDc[qpc % 6], qd = qpc / 6;
+      dc = qpc >= 6 ? v * (lev << (qd - 1)) : (v * lev) >> 1;
+    }
+  }
+  int* out = tile[wid];
+  if (lane < 24) {
+    int d[16];
+    if (e >= 0) {
+      const int q = lane < 16 ? qp : qpc;
+      const int* scale = kLevelScalePos[q % 6];
+      const int shift = q / 6;
+      const int4* src = reinterpret_cast<const int4*>(levels + e * 16);
+      const int4 w0 = src[0], w1 = src[1];
+      const int words[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        const int lv = (int)(int16_t)(words[i >> 1] >> (16 * (i & 1)));
+        d[i] = lv * (scale[i] << shift);
+      }
+      d[0] += dc;
+      idct_block(d);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 16; ++i) d[i] = (dc + 32) >> 6;
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      *reinterpret_cast<int4*>(&out[block_pel(lane, r, 0)]) =
+          make_int4(d[4 * r], d[4 * r + 1], d[4 * r + 2], d[4 * r + 3]);
+    }
+  }
+  __syncwarp();
+  const int4* t4 = reinterpret_cast<const int4*>(out);
+  int4* ol = reinterpret_cast<int4*>(res_l + mb * 256);
+  int4* oc = reinterpret_cast<int4*>(res_c + mb * 128);
+  ol[lane] = t4[lane];
+  ol[lane + 32] = t4[lane + 32];
+  oc[lane] = t4[64 + lane];
 }
 
 static int blocks_for(int n) { return (n + 255) / 256; }
@@ -147,19 +247,27 @@ extern "C" int h264_idct_blocks(const void* coeff, const void* scales,
   return (int)cudaGetLastError();
 }
 
+// slot: nMB*26 int32 scratch, filled here
 extern "C" int h264_residual_sparse(const void* ids, const void* levels,
-                                    const void* qp_y, const void* qp_c,
-                                    const void* dc, void* res_l, void* res_c,
+                                    const void* qp_y, const void* cqo,
+                                    const void* nnz_dc, const void* is_i16,
+                                    void* slot, void* res_l, void* res_c,
                                     int n_entries, int n_mbs, void* stream) {
   cudaStream_t s = (cudaStream_t)stream;
-  if (n_mbs > 0)
-    residual_dc_kernel<<<blocks_for(n_mbs * 384), 256, 0, s>>>(
-        (const int32_t*)dc, (int32_t*)res_l, (int32_t*)res_c, n_mbs);
-  int rc = (int)cudaGetLastError();
-  if (rc == 0 && n_entries > 0)
-    residual_entries_kernel<<<blocks_for(n_entries), 256, 0, s>>>(
-        (const int32_t*)ids, (const int16_t*)levels, (const int32_t*)qp_y,
-        (const int32_t*)qp_c, (const int32_t*)dc, (int32_t*)res_l,
-        (int32_t*)res_c, n_entries, n_mbs);
-  return rc ? rc : (int)cudaGetLastError();
+  if (n_mbs <= 0) return (int)cudaGetLastError();
+  int rc = (int)cudaMemsetAsync(slot, 0xFF, sizeof(int) * 26 * n_mbs, s);
+  if (rc == 0 && n_entries > 0) {
+    residual_map_kernel<<<blocks_for(n_entries), 256, 0, s>>>(
+        (const int64_t*)ids, n_entries, 26 * n_mbs, (int*)slot);
+    rc = (int)cudaGetLastError();
+  }
+  if (rc == 0) {
+    residual_mb_kernel<<<(n_mbs + RES_WARPS - 1) / RES_WARPS, RES_WARPS * 32,
+                         0, s>>>(
+        (const int16_t*)levels, (const uint8_t*)qp_y, (const int8_t*)cqo,
+        (const int32_t*)nnz_dc, (const uint8_t*)is_i16, (const int*)slot,
+        (int32_t*)res_l, (int32_t*)res_c, n_mbs);
+    rc = (int)cudaGetLastError();
+  }
+  return rc;
 }

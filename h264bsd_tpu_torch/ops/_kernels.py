@@ -39,8 +39,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P, _I = ct.c_void_p, ct.c_int
 # C entry point -> (kernel name, source stem, argtypes); the trailing
 # c_void_p of every entry point is the CUDA stream. The dependency-driven
-# kernels (deblock_wf, intra_list) take their int32 scratch -- done flags
-# and ticket counter -- as pointers the wrapper allocates.
+# kernels (deblock_wf, intra_list, intra_wf) take their int32 scratch --
+# done flags or row progress counters, and the ticket counter -- and the
+# residual stage its slot map as pointers the wrapper allocates.
 ENTRY = {
     "h264_deblock_wavefront": ("deblock_wf", "deblock_wf",
                                [_P] * 12 + [_I, _I, _P]),
@@ -49,12 +50,12 @@ ENTRY = {
     "h264_intra_list": ("intra_list", "intra_list",
                         [_P] * 15 + [_I, _I, _I, _P]),
     "h264_intra_wavefront": ("intra_wf", "intra_wf",
-                             [_P] * 12 + [_I, _I, _P]),
+                             [_P] * 13 + [_I, _I, _P]),
     "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),
     "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 4 + [_P]),
     "h264_idct_blocks": ("idct_blocks", "transform", [_P] * 5 + [_I, _P]),
     "h264_residual_sparse": ("residual_sparse", "transform",
-                             [_P] * 7 + [_I, _I, _P]),
+                             [_P] * 9 + [_I, _I, _P]),
 }
 
 # wrapper calls that launched each kernel (reset_launches() zeroes them)
@@ -140,9 +141,11 @@ def _function(entry: str):
     return _libs[entry]
 
 
-def ptr(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> int:
+def ptr(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
+        align: int = 1) -> int:
     """Device pointer of a CUDA tensor the kernel reads or writes, after
-    checking what the kernel assumes of it."""
+    checking what the kernel assumes of it (`align`: the byte alignment
+    of its vector loads or stores)."""
     if t.device.type != "cuda":
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
     if t.dtype != dtype or tuple(t.shape) != tuple(shape):
@@ -150,6 +153,8 @@ def ptr(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str) -> int:
                          f"{t.dtype} {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name}: expected a {align}-byte aligned tensor")
     return t.data_ptr()
 
 

@@ -76,9 +76,10 @@ def intra_args(y, cb, cr, mb_class, i4_modes, i4_avail, mb_avail, i16_mode,
               (n, 2, 8, 8)]
     names = ["mb_class", "i4_modes", "i4_avail", "mb_avail", "i16_mode",
              "chroma_mode", "resid_luma", "resid_chroma"]
-    ptrs = [_kernels.ptr(y, u8, (H, W), "y"),
-            _kernels.ptr(cb, u8, (H // 2, W // 2), "cb"),
-            _kernels.ptr(cr, u8, (H // 2, W // 2), "cr")]
+    # the kernels read and write the planes four pels at a time
+    ptrs = [_kernels.ptr(y, u8, (H, W), "y", 4),
+            _kernels.ptr(cb, u8, (H // 2, W // 2), "cb", 4),
+            _kernels.ptr(cr, u8, (H // 2, W // 2), "cr", 4)]
     ptrs += [_kernels.ptr(t, i32, s, name)
              for t, s, name in zip(as32, shapes, names)]
     w = i4_weights(y.device)

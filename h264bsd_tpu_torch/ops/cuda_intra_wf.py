@@ -2,12 +2,16 @@
 
 Counterpart of the JAX package's ops/pallas_intra_wf.py
 (intra_pass_wavefront_pallas :600). The kernel is intra_wf_kernel in
-csrc/intra_wf.cu: K2's per-MB device code (csrc/intra_mb.cuh), launched
-once per anti-diagonal w = 2r + c with one thread block per MB on it.
-It runs on frames with more than WF_THRESH intra MBs.
+csrc/intra_wf.cu: one launch, one persistent thread block per MB row,
+each taking its row from a ticket counter and walking its MBs left to
+right, MB c once the row above has done MB c+1 (per-row progress
+counters, csrc/mb_sync.cuh), with the per-MB device code of
+csrc/intra_mb.cuh. It runs on frames with more than WF_THRESH intra MBs.
 """
 
 from __future__ import annotations
+
+import torch
 
 from . import _kernels
 from .cuda_intra import intra_args, intra_pass_cuda
@@ -43,6 +47,8 @@ def intra_pass_wavefront_cuda(y, cb, cr, mb_class, i4_modes, i4_avail,
     if y.device.type == "cpu":
         return intra_pass_wavefront_plain(*args)
     ptrs, _keep = intra_args(*args)
-    _kernels.launch("h264_intra_wavefront", y.device, *ptrs, width_mbs,
-                    height_mbs)
+    # the kernel's scratch: each row's count of MBs done, then the ticket
+    sync = torch.zeros(height_mbs + 1, dtype=torch.int32, device=y.device)
+    _kernels.launch("h264_intra_wavefront", y.device, *ptrs,
+                    sync.data_ptr(), width_mbs, height_mbs)
     return y, cb, cr

@@ -6,10 +6,11 @@ csrc/transform.cu, one block-transform body with two entry points:
 
 - idct_blocks: K9 itself, (N, 16) levels and scales with an optional
   external DC per block; plain version transform.idct_blocks_plain.
-- residual_planes_sparse_cuda: the residual stage of the main path. The
-  DC gathering and the luma/chroma DC transforms stay PyTorch
-  (transform.residual_dc); the kernel writes every block's DC-only
-  residual, then transforms the shipped AC blocks over it. Plain version
+- residual_planes_sparse_cuda: the whole residual stage of the main
+  path in one memset and two launches: a map from block id to sparse
+  entry, then one warp per MB that gathers and transforms its luma and
+  chroma DC (transform.residual_dc's work), makes its 24 blocks and
+  writes its residuals once. Plain version
   transform.residual_planes_sparse.
 """
 
@@ -18,7 +19,7 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .transform import idct_blocks_plain, residual_dc, residual_planes_sparse
+from .transform import idct_blocks_plain, residual_planes_sparse
 
 
 def idct_blocks(coeff, scales, ext_dc, skip_dc):
@@ -55,21 +56,29 @@ def residual_planes_sparse_cuda(sparse_ids, sparse_levels, qp_y,
                                       chroma_qp_offset, nnz_dc, is_i16, n_mb)
     dev = sparse_ids.device
     i32 = torch.int32
-    dc, cqp = residual_dc(sparse_ids, sparse_levels, qp_y, chroma_qp_offset,
-                          nnz_dc, is_i16, n_mb)
-    ids = sparse_ids.reshape(-1).to(i32).contiguous()
+    # the main path's dtypes pass as they are (no copies); the int16
+    # levels are read 16 bytes at a time
+    ids = sparse_ids.reshape(-1).to(torch.int64).contiguous()
     cap = ids.shape[0]
     lv = sparse_levels.to(torch.int16).contiguous()
-    qp32, cqp32, dc32 = (t.to(i32).contiguous() for t in (qp_y, cqp, dc))
+    qp = qp_y.to(torch.uint8).contiguous()
+    cqo = chroma_qp_offset.to(torch.int8).contiguous()
+    nnz = nnz_dc.to(i32).contiguous()
+    i16 = is_i16.to(torch.bool).contiguous()
+    slot = torch.empty(n_mb * 26, dtype=i32, device=dev)    # the id map
     res_l = torch.empty((n_mb, 16, 16), dtype=i32, device=dev)
     res_c = torch.empty((n_mb, 2, 8, 8), dtype=i32, device=dev)
     _kernels.launch("h264_residual_sparse", dev,
-                    _kernels.ptr(ids, i32, (cap,), "sparse_ids"),
-                    _kernels.ptr(lv, torch.int16, (cap, 16), "sparse_levels"),
-                    _kernels.ptr(qp32, i32, (n_mb,), "qp_y"),
-                    _kernels.ptr(cqp32, i32, (n_mb,), "chroma_qp"),
-                    _kernels.ptr(dc32, i32, (n_mb, 24), "dc"),
-                    _kernels.ptr(res_l, i32, (n_mb, 16, 16), "res_l"),
-                    _kernels.ptr(res_c, i32, (n_mb, 2, 8, 8), "res_c"),
+                    _kernels.ptr(ids, torch.int64, (cap,), "sparse_ids"),
+                    _kernels.ptr(lv, torch.int16, (cap, 16), "sparse_levels",
+                                 16),
+                    _kernels.ptr(qp, torch.uint8, (n_mb,), "qp_y"),
+                    _kernels.ptr(cqo, torch.int8, (n_mb,),
+                                 "chroma_qp_offset"),
+                    _kernels.ptr(nnz, i32, (n_mb, 3), "nnz_dc"),
+                    _kernels.ptr(i16, torch.bool, (n_mb,), "is_i16"),
+                    _kernels.ptr(slot, i32, (n_mb * 26,), "slot"),
+                    _kernels.ptr(res_l, i32, (n_mb, 16, 16), "res_l", 16),
+                    _kernels.ptr(res_c, i32, (n_mb, 2, 8, 8), "res_c", 16),
                     cap, n_mb)
     return res_l, res_c

@@ -264,6 +264,30 @@ RESIDUAL_STATE = ("sparse_ids", "sparse_levels", "qp_y", "chroma_qp_offset",
                   "nnz_dc", "is_i16")
 
 
+def residual_edge_case(seed, w_mbs, h_mbs, qp=None) -> dict:
+    """residual_case with what the fused residual kernel must also get
+    right: half of the Intra_16x16 MBs with their luma nnz_dc bit clear
+    (their DC passes through untransformed), chroma QP offsets of -12 and
+    +12 only, and the real ids in class order as the front-end writes
+    them (four classes, each ascending, one after another: not sorted
+    overall), padding after them; with qp, every MB's qp_y is qp."""
+    case = residual_case(seed, w_mbs, h_mbs)
+    rng = np.random.default_rng(seed + 1000)
+    n = w_mbs * h_mbs
+    i16 = np.flatnonzero(case["is_i16"])
+    case["nnz_dc"][i16[rng.random(len(i16)) < 0.5], 0] = 0
+    case["chroma_qp_offset"] = rng.choice([-12, 12], n).astype(np.int8)
+    if qp is not None:
+        case["qp_y"][:] = qp
+    ids, levels = case["sparse_ids"], case["sparse_levels"]
+    real = ids < n * 26
+    order = np.lexsort((ids[real], rng.integers(0, 4, int(real.sum()))))
+    case["sparse_ids"] = np.concatenate([ids[real][order], ids[~real]])
+    case["sparse_levels"] = np.concatenate([levels[real][order],
+                                            levels[~real]])
+    return case
+
+
 def case_inputs(case, names, device):
     """The case's arrays `names` as tensors on `device`, in that order."""
     t = from_numpy(case, device)

@@ -40,7 +40,8 @@ from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE,
                                                   intra_case, intra_inputs,
                                                   mc_case, mc_inputs,
                                                   padded_intra_ids,
-                                                  residual_case)
+                                                  residual_case,
+                                                  residual_edge_case)
 
 pytestmark = pytest.mark.cuda
 
@@ -213,6 +214,48 @@ def test_intra_wavefront_kernel(dev, dims):
     assert _kernels.LAUNCHES["intra_wf"] == before + 1
 
 
+def _all_c_case(seed, w, h):
+    """Every above-right bit set: blocks 5 and 13 of the Intra_4x4 chain
+    then read the pels they must take from the copy made before it."""
+    case = intra_case(seed, w, h)
+    case["i4_avail"] = case["i4_avail"] | 4
+    return case
+
+
+@pytest.mark.parametrize("kind", ["random_c", "all_c", "all_intra"])
+def test_intra_wavefront_kernel_1080p(dev, kind):
+    dims = (120, 68)
+    case = {"random_c": lambda: intra_case(14, *dims),
+            "all_c": lambda: _all_c_case(14, *dims),
+            "all_intra": lambda: intra_case(14, *dims, all_intra=True)}[kind]()
+    args = intra_inputs(case, dev)
+    before = _kernels.LAUNCHES["intra_wf"]
+    got = intra_pass_wavefront_cuda(*_clone_planes(args), *dims)
+    want = intra_pass_wavefront_plain(*_clone_planes(args), *dims)
+    _assert_planes_equal(got, want)
+    assert _kernels.LAUNCHES["intra_wf"] == before + 1
+
+
+def test_intra_wavefront_kernel_graph_replays(dev):
+    dims = (120, 68)
+    args = intra_inputs(intra_case(15, *dims, all_intra=True), dev)
+    want = intra_pass_wavefront_plain(*_clone_planes(args), *dims)
+    _replays_equal(lambda *a: intra_pass_wavefront_cuda(*a, *dims), args,
+                   want, 50)
+
+
+def test_intra_list_kernel_all_c(dev):
+    """K2 shares the Intra_4x4 chain of K7."""
+    dims = (20, 12)
+    case = _all_c_case(16, *dims)
+    args = intra_inputs(case, dev)
+    ids = padded_intra_ids(case, 5, dev)
+    got = intra_pass_cuda(*_clone_planes(args), *dims, intra_ids=ids)
+    want = intra_pass_list(*_clone_planes(args)[:3], ids,
+                           *_clone_planes(args)[3:], dims[0])
+    _assert_planes_equal(got, want)
+
+
 def test_narrow_frames_go_to_the_raster_kernels(dev):
     """Under 3 MBs wide the wavefront wrappers hand off to K8 and K2."""
     dims = (2, 4)
@@ -293,6 +336,23 @@ def test_idct_blocks_kernel(dev, n):
 def test_residual_sparse_kernel(dev, seed, dims):
     n = dims[0] * dims[1]
     args = case_inputs(residual_case(seed, *dims), RESIDUAL_STATE, dev)
+    before = _kernels.LAUNCHES["residual_sparse"]
+    got = residual_planes_sparse_cuda(*args, n)
+    want = residual_planes_sparse(*args, n)
+    torch.cuda.synchronize()
+    for g, w, name in zip(got, want, ("res_l", "res_c")):
+        assert torch.equal(g, w), name
+    assert _kernels.LAUNCHES["residual_sparse"] == before + 1
+
+
+# ids in class order, nnz_dc-cleared Intra_16x16 MBs, chroma QP offsets
+# of +-12; qp_y as drawn, at 0 and at 51; 1080p
+@pytest.mark.parametrize("qp,dims", [(None, (6, 4)), (0, (20, 12)),
+                                     (51, (20, 12)), (None, (120, 68))])
+def test_residual_sparse_kernel_edge_cases(dev, qp, dims):
+    n = dims[0] * dims[1]
+    args = case_inputs(residual_edge_case(4, *dims, qp=qp), RESIDUAL_STATE,
+                       dev)
     before = _kernels.LAUNCHES["residual_sparse"]
     got = residual_planes_sparse_cuda(*args, n)
     want = residual_planes_sparse(*args, n)

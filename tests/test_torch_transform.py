@@ -1,9 +1,11 @@
 """K9 (dequant + inverse transform) of the PyTorch port, on the CPU: its
 plain version against the JAX package's Pallas kernel in interpret mode
 and against the XLA idct4x4; the residual stage's wrapper, on CPU
-tensors, against the JAX package's residual_planes_sparse; and the CUDA
-source's scale table against the Python one. The kernels themselves run
-on the card only (tests/test_torch_kernels_cuda.py)."""
+tensors, against the JAX package's residual_planes_sparse, on random
+cases and on the edge cases of the fused kernel (DC pass-through, chroma
+QP offsets of +-12, ids in class order, qp 0 and 51); and the CUDA
+source's constant tables against the Python ones. The kernels themselves
+run on the card only (tests/test_torch_kernels_cuda.py)."""
 
 import re
 from functools import partial
@@ -22,7 +24,8 @@ from h264bsd_tpu_torch.ops.cuda_transform import (idct_blocks,
                                                   residual_planes_sparse_cuda)
 from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE, RESIDUAL_STATE,
                                                   case_inputs, idct_case,
-                                                  residual_case)
+                                                  residual_case,
+                                                  residual_edge_case)
 
 CPU = torch.device("cpu")
 CSRC = Path(__file__).parents[1] / "h264bsd_tpu_torch" / "csrc"
@@ -68,10 +71,7 @@ def _jax_residual(ids, levels, qp, cqo, nnz_dc, is_i16, n):
                                              is_i16, n)
 
 
-@pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (9, 5))])
-def test_residual_stage_matches_jax(seed, dims):
-    n = dims[0] * dims[1]
-    case = residual_case(seed, *dims)
+def _residual_matches_jax(case, n):
     want = _jax_residual(*(jnp.asarray(case[k]).astype(jnp.int32)
                            for k in RESIDUAL_STATE[:5]),
                          jnp.asarray(case["is_i16"]), n)
@@ -83,6 +83,39 @@ def test_residual_stage_matches_jax(seed, dims):
         _eq(res_l, want[0], f"{fn.__name__} res_l")
         _eq(res_c, want[1], f"{fn.__name__} res_c")
     assert _kernels.LAUNCHES == before     # CPU tensors: plain versions
+
+
+@pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (9, 5))])
+def test_residual_stage_matches_jax(seed, dims):
+    _residual_matches_jax(residual_case(seed, *dims), dims[0] * dims[1])
+
+
+@pytest.mark.parametrize("qp", [None, 0, 51])
+def test_residual_stage_edge_case_matches_jax(qp):
+    """Intra_16x16 MBs with nnz_dc[0] clear, chroma_qp_offset +-12, ids in
+    class order (not sorted), and every qp_y at either end of its range."""
+    dims = (6, 4)
+    n = dims[0] * dims[1]
+    case = residual_edge_case(3, *dims, qp=qp)
+    ids = case["sparse_ids"][case["sparse_ids"] < n * 26]
+    assert (np.diff(ids) < 0).any()
+    i16 = case["is_i16"]
+    assert (case["nnz_dc"][i16, 0] == 0).any()
+    assert set(case["chroma_qp_offset"].tolist()) == {-12, 12}
+    _residual_matches_jax(case, n)
+
+
+def _cu_table(name, size):
+    src = (CSRC / "transform.cu").read_text()
+    body = re.search(re.escape(f"{name}{size} = {{") + r"(.*?)\};", src,
+                     re.S).group(1)
+    return np.array([int(v) for v in re.findall(r"\d+", body)])
+
+
+def test_kernel_dc_tables_match_python():
+    _eq(_cu_table("kQpC", "[52]"), ttransform.QP_C, "QP_C")
+    _eq(_cu_table("kLevelScaleDc", "[6]"), ttransform.LEVEL_SCALE_DC,
+        "LEVEL_SCALE_DC")
 
 
 def test_kernel_scale_table_matches_python():

@@ -15,8 +15,10 @@ and prints one JSON line per geometry with:
                         pass: the union of the CUDA activity intervals
                         (kernels, copies, memsets) over the wall time;
   kernels               device time and calls per frame by kernel name,
-                        the port's CUDA kernels and the rest (the
-                        PyTorch glue: unpack, DC transforms, bS, copies);
+                        the port's CUDA kernels (every __global__
+                        function in the checkout's csrc/*.cu) and the
+                        rest (the PyTorch glue: unpack, bS, copies,
+                        fills and memsets);
   graph_captures, graph_replays, eager_frames
                         how the frames of the profiled pass ran
                         (models/graphs.py): one capture per frame shape
@@ -30,19 +32,31 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import subprocess
 import sys
 import time
 from collections import defaultdict
 from pathlib import Path
 
-sys.path.insert(0, str(Path(__file__).parents[1]))
+ROOT = Path(__file__).parents[1]
+sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-OURS = ("intra_wf_kernel", "intra_list_kernel", "deblock_wf_kernel",
-        "deblock_raster_kernel", "mc_uniform_kernel", "mc_exception_kernel",
-        "residual_dc_kernel", "residual_entries_kernel")
+
+KERNEL_DECL = (r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s*)?"
+               r"(\w+)\s*\(")
+
+
+def our_kernels():
+    """The port's CUDA kernels by function name: every __global__ function
+    of the checkout's csrc/*.cu. Every other device event counts as
+    glue."""
+    names = set()
+    for src in (ROOT / "h264bsd_tpu_torch" / "csrc").glob("*.cu"):
+        names.update(re.findall(KERNEL_DECL, src.read_text()))
+    return names
 
 
 def busy_us(intervals):
@@ -124,8 +138,9 @@ def profile(kind, w, h, n):
                     "calls_per_frame": c / k}
                    for nm, (us, c) in by_name.items()),
                   key=lambda r: -r["ms_per_frame"])
-    ours = [r for r in rows if r["name"] in OURS]
-    glue = [r for r in rows if r["name"] not in OURS]
+    names = our_kernels()
+    ours = [r for r in rows if r["name"] in names]
+    glue = [r for r in rows if r["name"] not in names]
     return {"stream": call,
             "frames": k, "host_ms_per_frame": host_ms,
             "e2e_ms_per_frame_pipelined": piped,
