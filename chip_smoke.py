@@ -3,16 +3,19 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card (the dependency-driven K1, K2 and K7 also
-over 50 CUDA-graph replays on fresh planes, a race check), decodes
-all-intra, P (IPPP and real motion), partial-loss and SEI streams through
-decode_stream, Decoder.decode and StreamingDecoder (windowable frames
-replay one CUDA graph per frame shape) and checks every picture's
-checksum, and the SEI messages, against the values the JAX package
-recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written by
-tools/record_torch_port_checksums.py), then times each kernel: its device
-time from torch.profiler's kernel events, the CUDA-event time of the
-wrapper call, and the plain version's time. Prints one JSON line per
+PyTorch version on the card (the dependency-driven K1, K2 and K7 and the
+MC stage mc_recon also over 50 CUDA-graph replays on fresh planes, a
+race check), decodes all-intra, P (IPPP and real motion), partial-loss
+and SEI streams through decode_stream, Decoder.decode and
+StreamingDecoder (windowable frames replay one CUDA graph per frame
+shape) and checks every picture's checksum, and the SEI messages,
+against the values the JAX package recorded
+(h264bsd_tpu_torch/testdata/reference_checksums.json, written by
+tools/record_torch_port_checksums.py) and that no decode launches the MC
+kernels of the TPU kernels' signature, then times each kernel: its
+device time from torch.profiler's kernel events, the CUDA-event time of
+the wrapper call, and the plain version's time; and the MC route that
+mc_recon replaced, on the same inputs. Prints one JSON line per
 phase (with the graph captures, replays and eager frames of each decode
 phase), then the kernel table, the card's name and power limit, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (exit
@@ -42,13 +45,26 @@ ALU_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations per filtered pel line (luma / chroma deblocking) and per
 # reconstructed pel (intra): prediction, residual add and clip
 OPS_LUMA_LINE, OPS_CHROMA_LINE, OPS_INTRA_PEL = 40, 20, 30
-# int32 operations per predicted luma pel by fractional case xFrac*4 +
-# yFrac (a 6-tap half-pel value ~14 with its rounding and clip, an average
-# 3, the centre j 74 from six horizontal taps and one vertical), and per
-# bilinear chroma pel
-LUMA_CASE_OPS = (1, 17, 14, 17, 17, 31, 91, 31, 14, 91, 74, 91, 17, 31, 91,
-                 31)
-OPS_CHROMA_PEL = 10
+# int32 operations of an unclipped 6-tap sum, and of a half-pel value (the
+# sum, its rounding and clip), an average, and a bilinear chroma pel (1
+# at weight (0, 0): a copy); the inter combine's add and clip per pel
+OPS_TAP, OPS_HALF, OPS_AVG, OPS_CHROMA_PEL, OPS_COMBINE_PEL = 10, 14, 3, 10, 3
+
+
+def luma_case_ops(size):
+    """int32 operations per predicted luma pel by fractional case xFrac*4
+    + yFrac, for a unit (an MB or a 4x4 block) of size x size pels with
+    one MV. The centre j is computed separably: the unclipped horizontal
+    sums of the unit's size + 5 window rows once per unit, size + 5 per
+    column of size pels, then one vertical tap with its rounding and
+    clip; f and q take b from those sums."""
+    j = OPS_TAP * (size + 5) / size + OPS_HALF
+    half, avg = OPS_HALF, OPS_AVG
+    return (1, half + avg, half, half + avg, half + avg, 2 * half + avg,
+            j + half + avg, 2 * half + avg, half, j + 4 + avg, j,
+            j + 4 + avg, half + avg, 2 * half + avg, j + half + avg,
+            2 * half + avg)
+
 # int32 operations of one K9 block: 16 dequant products, two passes of
 # four 4-point butterflies (2 shifts and 6 additions each), and the
 # rounding add and shift of 16 pels; per pel of the DC-only base, 3
@@ -68,6 +84,9 @@ KERNELS = {
                    "h264bsd_tpu/ops/pallas_mc.py:174 and :226"),
     "mc_exception": ("h264bsd_tpu_torch/csrc/mc.cu",
                      "h264bsd_tpu/ops/pallas_mc.py:284 and :306"),
+    # K3-K6 with the inter combine, the main path's MC stage
+    "mc_recon": ("h264bsd_tpu_torch/csrc/mc.cu",
+                 "h264bsd_tpu/ops/pallas_mc.py:174, :226, :284 and :306"),
     # K9 with the JAX package's signature, and K9's body as the main
     # path's residual stage
     "idct_blocks": ("h264bsd_tpu_torch/csrc/transform.cu",
@@ -89,11 +108,13 @@ PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
                    "deblock_raster": "decode_small",
                    "mc_uniform": "decode_1080p_motion",
                    "mc_exception": "decode_1080p_motion",
+                   "mc_recon": "decode_1080p_motion",
                    "idct_blocks": "decode_1080p_motion",
                    "residual_sparse": "decode_1080p_motion"}
-# the main path runs K9's body through residual_sparse; idct_blocks is K9
-# with the TPU kernel's own signature, which no decode calls
-OFF_PATH = ("idct_blocks",)
+# the main path runs K9's body through residual_sparse and K3-K6 through
+# mc_recon; idct_blocks, mc_uniform and mc_exception are those kernels
+# with the TPU kernels' own signatures, which no decode calls
+OFF_PATH = ("idct_blocks", "mc_uniform", "mc_exception")
 
 
 def emit(record):
@@ -168,39 +189,92 @@ def device_ms(fn, args, reps, name, attempts=3):
     return ms, sum(len(u) for u in us.values()) / reps
 
 
+def route_device_ms(fn, args, reps):
+    """Device time per call of everything fn(*args) runs on the card
+    (kernels, copies, fills: every CUDA event of torch.profiler), the
+    mean over `reps` calls after a warm one, and the CUDA events per
+    call."""
+    fn(*args)
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(reps):
+            fn(*args)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.time_range.end - e.time_range.start for e in dev) / reps
+            / 1e3, len(dev) / reps)
+
+
 def nbytes(tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def graph_replays_err(kernel, plain, args, dims, replays):
     """Capture one call of `kernel` in a CUDA graph and replay it
-    `replays` times, each on a fresh copy of the planes; returns the
-    largest max |err| of a replay against the plain version. A race
-    between the blocks of a dependency-driven kernel would show as a
-    replay that differs."""
+    `replays` times, each on a fresh copy of the planes (and into outputs
+    filled with a sentinel first, for a kernel that returns new planes);
+    returns the largest max |err| of a replay against the plain version.
+    A race between the blocks of a dependency-driven kernel, or a pel a
+    replay leaves unwritten, would show as a replay that differs."""
     want = plain(*planes_copy(args), *dims)
     static = planes_copy(args)
     kernel(*planes_copy(args), *dims)        # warm: libraries, tables
     torch.cuda.synchronize()
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
-        kernel(*static, *dims)
+        out = kernel(*static, *dims)
     worst = 0
     for _ in range(replays):
+        for o in out:
+            o.fill_(0xA5)
         for dst, src in zip(static[:3], args[:3]):
             dst.copy_(src)
         graph.replay()
-        worst = max(worst, max_abs_err(static[:3], want))
+        worst = max(worst, max_abs_err(out, want))
     return worst
 
 
-def mc_ops(mvx, mvy, pels_luma, pels_chroma):
-    """int32 operations of the one fractional case each predicted unit
-    (an MB or a 4x4 block, with its MV) needs."""
+def mc_ops(mvx, mvy, size):
+    """int32 operations of the one fractional case each predicted unit (an
+    MB, size 16, or a 4x4 block, size 4, with its MV) needs: size^2 luma
+    pels and 2 x (size/2)^2 chroma pels."""
+    mvx, mvy = mvx.long(), mvy.long()
     frac = (mvx & 3) * 4 + (mvy & 3)
-    per = torch.as_tensor(LUMA_CASE_OPS, device=frac.device)[frac.long()]
-    return int(per.sum()) * pels_luma + frac.numel() * pels_chroma \
-        * OPS_CHROMA_PEL
+    per = torch.as_tensor(luma_case_ops(size), dtype=torch.float64,
+                          device=frac.device)[frac]
+    chroma = torch.where(((mvx | mvy) & 7) != 0, OPS_CHROMA_PEL, 1)
+    return int(per.sum()) * size * size \
+        + int(chroma.sum()) * 2 * (size // 2) ** 2
+
+
+def mc_recon_bound(args):
+    """(bytes, int32 operations) the main path's MC stage needs on
+    mc_recon_cuda's arguments."""
+    _, _, _, mv, ref_slot, mb_class, _, _, pcm = args
+    n = mv.shape[0]
+    inter = (mb_class == 1) | (mb_class == 2)
+    slot = ref_slot.long().clamp(0, args[0].shape[0] - 1)
+    uniform = (mv == mv[:, :1]).all(2).all(1) \
+        & (slot == slot[:, :1]).all(1)
+    n_inter = int(inter.sum())
+    n_pcm = 0 if pcm is None else int((mb_class == 5).sum())
+    # per inter MB its ring pels read once, its int32 residual and its
+    # pels written, and its motion (64 + 16 bytes); per other MB its
+    # pels written (and read from the PCM grids on an I_PCM MB); the
+    # class of every MB
+    byt = n_inter * (384 + 1536 + 384 + 80) + (n - n_inter) * 384 \
+        + n_pcm * 384 + n
+    # an MB whose blocks share block 0's motion is one 16x16 unit, any
+    # other inter MB 16 4x4 units; the combine on every inter pel
+    split = mv[inter & ~uniform].reshape(-1, 2)
+    ops = mc_ops(mv[inter & uniform][:, 0, 0],
+                 mv[inter & uniform][:, 0, 1], 16) \
+        + mc_ops(split[:, 0], split[:, 1], 4) \
+        + n_inter * 384 * OPS_COMBINE_PEL
+    return byt, ops
 
 
 def main() -> int:
@@ -224,11 +298,15 @@ def main() -> int:
         intra_pass_wavefront_cuda, intra_pass_wavefront_plain)
     from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
                                                mc_exception_plain,
+                                               mc_predict_grids,
+                                               mc_recon_cuda,
+                                               mc_recon_plain,
                                                mc_uniform_cuda,
                                                mc_uniform_plain)
     from h264bsd_tpu_torch.ops.cuda_transform import (
         idct_blocks, residual_planes_sparse_cuda)
     from h264bsd_tpu_torch.ops.deblock import anti_diagonals
+    from h264bsd_tpu_torch.ops.inter import mb_grid_to_plane
     from h264bsd_tpu_torch.ops.intra import intra_pass_list
     from h264bsd_tpu_torch.ops.transform import (idct_blocks_plain,
                                                  residual_planes_sparse)
@@ -319,7 +397,10 @@ def main() -> int:
     checks[-1]["case"] = "all_c"
     # MC at the decode tests' size, a mid size and 1080p, 1, 4 and 16
     # slots; the exception kernel over the uniform grids, once with the
-    # real entry count and once walking the padding too
+    # real entry count and once walking the padding too; the main path's
+    # MC stage on the same motion with classes and residuals, without and
+    # with I_PCM MBs, and on every window across a frame edge and on
+    # whole-pel MVs only
     for seed, (dims, n_slots) in enumerate([((6, 4), 1), ((20, 12), 4),
                                             ((120, 68), 16)]):
         case = kc.mc_case(seed, *dims, n_slots, 0.25)
@@ -332,6 +413,13 @@ def main() -> int:
                   lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
                   lambda *a: mc_exception_plain(*a, n_exc=n_exc),
                   grids + args, dims)
+        for pcm, motion in ((False, "mixed"), (True, "mixed"),
+                            (True, "edge"), (False, "integer")):
+            check("mc_recon", mc_recon_cuda, mc_recon_plain,
+                  kc.mc_recon_inputs(kc.mc_recon_case(
+                      seed, *dims, n_slots, 0.25, pcm=pcm, motion=motion),
+                      dev), dims)
+            checks[-1]["case"] = f"{motion}, pcm {pcm}"
     # K9 on two tiles of the TPU kernel and on 16; the residual stage at
     # the decode tests' size, a mid size and 1080p
     for n in (512, 8192):
@@ -382,6 +470,9 @@ def main() -> int:
     race("intra_wf", intra_pass_wavefront_cuda, intra_pass_wavefront_plain,
          kc.intra_inputs(kc.intra_case(9, 120, 68, all_intra=True), dev),
          (120, 68))
+    race("mc_recon", mc_recon_cuda, mc_recon_plain,
+         kc.mc_recon_inputs(kc.mc_recon_case(9, 120, 68, 4, 0.06, pcm=True),
+                            dev), (120, 68))
     emit({"phase": "kernels", "checks": checks, "graph_replays": races,
           "launches": dict(_kernels.LAUNCHES)})
 
@@ -415,9 +506,12 @@ def main() -> int:
         if sums != e["checksums"]:
             raise AssertionError(f"{name}: checksums {sums} != recorded "
                                  f"{e['checksums']}")
-        if counts["residual_sparse"] == 0:
-            raise AssertionError(f"{name}: the residual kernel never "
+        if counts["residual_sparse"] == 0 or counts["mc_recon"] == 0:
+            raise AssertionError(f"{name}: the residual or MC kernel never "
                                  f"launched: {counts}")
+        if counts["mc_uniform"] or counts["mc_exception"]:
+            raise AssertionError(f"{name}: the MC kernels of the TPU "
+                                 f"kernels' signature launched: {counts}")
         rec = {"stream": name, "pictures": len(sums), "checksums_ok": True,
                **stats, "launches": counts}
         return rec, counts
@@ -440,12 +534,13 @@ def main() -> int:
                 per_frame[k] = counts[k] / pictures
 
     for phase, name, need in [
-            ("decode_720p_all_i", "intra_720p", ("intra_wf", "deblock_wf")),
+            ("decode_720p_all_i", "intra_720p",
+             ("intra_wf", "deblock_wf", "mc_recon")),
             ("decode_1080p_all_i", "intra_1080p",
-             ("intra_wf", "deblock_wf")),
-            ("decode_1080p_ippp", "ippp_1080p", ("mc_uniform",)),
+             ("intra_wf", "deblock_wf", "mc_recon")),
+            ("decode_1080p_ippp", "ippp_1080p", ("mc_recon",)),
             ("decode_1080p_motion", "motion_1080p",
-             ("mc_uniform", "mc_exception", "intra_list"))]:
+             ("mc_recon", "intra_list"))]:
         rec, counts = decode(name, timed=True)
         if not all(counts[k] > 0 for k in need):
             raise AssertionError(f"{name}: kernels {need} not all launched: "
@@ -462,7 +557,7 @@ def main() -> int:
               "intra_in_p", "intra_in_p_constrained", "pcm",
               "deblock_control", "slice_groups", "redundant", "motion_6x4",
               "loss_idr_slice", "loss_p_slice"),
-             ("mc_uniform", "mc_exception", "intra_list", "deblock_wf"))]:
+             ("mc_recon", "intra_list", "deblock_wf"))]:
         runs = [decode(name, timed=False) for name in names]
         counts = {k: sum(c[k] for _, c in runs) for k in KERNELS}
         if not all(counts[k] > 0 for k in need):
@@ -585,7 +680,7 @@ def main() -> int:
         # one ring read per predicted pel, the grids written once, block
         # 0's MV and slot as int32
         byt = 2 * 384 * n + 12 * n
-        return byt, mc_ops(mv[:, 0, 0], mv[:, 0, 1], 256, 64 * 2)
+        return byt, mc_ops(mv[:, 0, 0], mv[:, 0, 1], 16)
 
     def mc_exception_bound(args, dims, n_exc):
         mv, ids = args[6], args[8][:n_exc].long()
@@ -595,7 +690,7 @@ def main() -> int:
         n_blk = m.shape[0]
         # per 4x4 block: 24 pels read and written, MV and slot, its id
         byt = 2 * 24 * n_blk + 12 * n_blk + 4 * n_exc
-        return byt, mc_ops(m[:, 0], m[:, 1], 16, 4 * 2)
+        return byt, mc_ops(m[:, 0], m[:, 1], 4)
 
     def residual_bound(args, n):
         ids, levels = args[0], args[1]
@@ -749,6 +844,41 @@ def main() -> int:
                 lambda *a: mc_exception_cuda(*a, n_exc=n_exc),
                 lambda *a: mc_exception_plain(*a, n_exc=n_exc), args, dims,
                 mc_exception_bound(args, dims, n_exc), 1, 5)
+    # the main path's MC stage on the same motion, with MB classes and
+    # residuals; then the route it replaced on the same inputs: K3+K4 and
+    # K5+K6 into MB grids, the PyTorch combine and mb_grid_to_plane
+    case = kc.mc_recon_case(15, *dims, 4, 0.06)
+    args = kc.mc_recon_inputs(case, dev)
+    time_kernel("mc_recon", mc_recon_cuda, mc_recon_plain, args, dims,
+                mc_recon_bound(args), 1, 5)
+    # where mc_recon's time goes: 1080p frames whose MBs all take one path
+    for label, split_case in kc.mc_recon_kind_cases(*dims):
+        split_args = kc.mc_recon_inputs(split_case, dev)
+        time_kernel("mc_recon", mc_recon_cuda, mc_recon_plain, split_args,
+                    dims, mc_recon_bound(split_args), 1, 2, True, label)
+    exc_ids = kc.mc_inputs(case, dev)[5]
+
+    def old_route(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l,
+                  res_c, pcm, w, h):
+        pred = mc_predict_grids(dpb_y, dpb_cb, dpb_cr, mv, ref_slot,
+                                exc_ids, w, h, case["n_exc"])
+        inter = ((mb_class == 1) | (mb_class == 2))[:, None, None]
+        res = (res_l, res_c[:, 0], res_c[:, 1])
+        return tuple(mb_grid_to_plane(torch.where(
+            inter, (p.to(torch.int32) + r).clamp(0, 255), 0).to(
+                torch.uint8), w, h) for p, r in zip(pred, res))
+
+    old_err = max_abs_err(old_route(*args, *dims), mc_recon_cuda(*args,
+                                                                 *dims))
+    if old_err:
+        raise AssertionError(f"mc_recon differs from the route it replaced "
+                             f"(max |err| {old_err})")
+    old_ms, old_events = route_device_ms(old_route, args + dims, 20)
+    old_route_row = {"dims": list(dims), "device_ms": old_ms,
+                     "device_events_per_call": old_events,
+                     "event_ms": timed_ms(lambda *a: old_route(*a, *dims),
+                                          args, 20),
+                     "max_abs_err_vs_mc_recon": old_err}
     # K9 over 16 tiles of the TPU kernel; the residual stage on the
     # second picture (a P picture) of the 1080p motion stream
     n = 8192
@@ -770,7 +900,8 @@ def main() -> int:
                                          "serial_steps",
                                          "launches_per_frame", "case")
                        if k in r}
-                      for r in rows + extra_rows]})
+                      for r in rows + extra_rows],
+          "mc_old_route": old_route_row})
 
     print(json.dumps({"kernels": rows}), flush=True)
     print(smi, flush=True)

@@ -1,37 +1,60 @@
-// Motion-compensation kernels: the uniform kernel (K3+K4) and the
-// exception kernel (K5+K6).
+// Motion compensation of a P picture, and the inter reconstruction it
+// feeds.
 //
-// mc_uniform_kernel replaces the TPU kernels _uniform_luma_kernel and
-// _uniform_chroma_kernel (h264bsd_tpu/ops/pallas_mc.py:174, :226), and
-// mc_exception_kernel the TPU kernels _exc_luma_kernel and
-// _exc_chroma_kernel (:284, :306), all driven there by _run (:370) from
-// mc_predict_grids (:409). Semantics are those of
-// h264bsd_tpu_torch/ops/inter.py: the 6-tap half-pel luma filter with
-// quarter-pel averages (reference h264bsdPredictSamples
-// reconstruct.c:1818-1940, frac code xFrac*4 + yFrac), the 1/8-pel
-// bilinear chroma filter, and border overfill as a clamp of every sample
-// coordinate into the plane (h264bsdFillBlock reconstruct.c:2244).
+// mc_recon_kernel is the main path's motion-compensation stage: one launch
+// per picture. It replaces the TPU kernels _uniform_luma_kernel and
+// _uniform_chroma_kernel (K3+K4, h264bsd_tpu/ops/pallas_mc.py:174, :226)
+// and _exc_luma_kernel and _exc_chroma_kernel (K5+K6, :284, :306), which
+// _run (:370) drives from mc_predict_grids (:409). It also takes in the
+// JAX package's inter combine, PCM merge and plane layout
+// (h264bsd_tpu/ops/reconstruct.py:168-218), an XLA elementwise pass, not
+// a Pallas kernel. Per MB it writes clip(pred + res, 0, 255) for an inter
+// MB (mb_class 1 or 2), the raw samples of an I_PCM MB (class 5) when PCM
+// grids are given, and 0 for every other MB, straight into the (H, W) and
+// (H/2, W/2) planes that the intra pass then completes.
 //
-// Layout: the DPB ring is read in place, (slots, H, W) luma and
-// (slots, H/2, W/2) chroma uint8, each block from its own slot
-// max(ref_slot, 0), so 1 to 16 references are one pass. The TPU version
-// edge-pads every referenced slot per frame because a VMEM window load
-// cannot clamp, and runs one pass per group of 4 slots that fit VMEM;
-// neither has a counterpart here. Outputs are the MB grids (nMB, 16, 16)
-// and (nMB, 8, 8) uint8; the exception kernel writes its quads over the
-// uniform kernel's result, after it on the same stream.
+// Semantics are those of h264bsd_tpu_torch/ops/inter.py: the 6-tap
+// half-pel luma filter with quarter-pel averages (reference
+// h264bsdPredictSamples reconstruct.c:1818-1940, frac code xFrac*4 +
+// yFrac), the 1/8-pel bilinear chroma filter, and border overfill as a
+// clamp of every sample coordinate into the plane (h264bsdFillBlock
+// reconstruct.c:2244). Each 4x4 block is predicted with its own MV and
+// slot from the dense per-block motion of unpack_meta. The front-end lists
+// a quad as an exception exactly when one of its blocks differs from block
+// 0, so this gives the bytes of the uniform pass plus the exception quads,
+// and needs no exception list.
 //
-// Bound: the operations. A 1080p frame's uniform pass reads one
-// reference pel per predicted pel (3 MB; neighbouring MBs' windows overlap
-// and come mostly from L2) and writes 3 MB, ~2 us at 3.35 TB/s, while its
-// filters cost ~14 int32 operations per pel for a half-pel case and ~90
-// for the centre ones, several us at Hopper's int32 rate. Design:
-// one thread block per MB (per quad for exceptions); the windows are staged in
-// shared memory with clamped coordinates, then each thread computes one
-// output pel of the one fractional case the block needs. The case is
-// uniform across a block (a quad's four blocks each have their own, one
-// per 16 threads), so the branch on it does not diverge inside a
-// half-warp. The TPU version computes all 16 cases and selects per lane.
+// Bound: the bytes, at the shapes of the main path. Per inter MB the
+// kernel reads 384 ring pels (neighbouring windows overlap and come from
+// L2) and 1536 bytes of int32 residual, and writes 384 plane bytes; every
+// other MB only writes (or copies) its 384 bytes. The filters cost ~14 to
+// ~50 int32 operations per pel (the centre cases, computed separably),
+// under the bytes' time at 1080p. Design: one block of 96 threads per MB;
+// warps 0-1 own the 256 luma pels, warp 2 the 2 x 64 chroma pels, 4
+// horizontally adjacent pels per thread, so the residual is one 16-byte
+// load and the result one 4-byte store into the plane row. A non-inter MB
+// writes and returns at once, without touching the ring. An inter MB whose
+// 16 blocks share block 0's MV and slot stages one 21x21 luma and two 9x9
+// chroma windows; any other MB stages a 9x9 and two 3x3 windows per 4x4
+// block (the branch is per MB, so a warp never splits on it). A window
+// whose columns, rounded out to whole words, lie inside the plane is
+// staged as aligned 16-, 8- or 4-byte words with the column offset kept in
+// the index; only windows that cross the frame's edge go pel by pel with
+// clamped coordinates. An integer MV (frac 0, chroma weight (0, 0)) reads
+// its samples from the ring directly, without a window. For the five
+// fractional cases that need the centre j, the unclipped horizontal 6-tap
+// sums of the window's rows are computed once into shared memory
+// (int16: -2550..10710) and the vertical tap runs over them.
+//
+// mc_uniform_kernel and mc_exception_kernel are the same prediction with
+// the TPU kernels' own signature (grids (nMB, 16, 16) and (nMB, 8, 8),
+// exception quads over the uniform result); no decode calls them. They
+// read the DPB ring in place, each block from its own slot max(ref_slot,
+// 0), so 1 to 16 references are one pass; the TPU version edge-pads every
+// referenced slot per frame because a VMEM window load cannot clamp, and
+// runs one pass per group of 4 slots that fit VMEM. One thread block per
+// MB (per quad for exceptions) stages its windows pel by pel with clamped
+// coordinates, then each thread computes one output pel.
 
 #include <cuda_runtime.h>
 
@@ -84,8 +107,13 @@ __device__ __forceinline__ int ver(const uint8_t* p, int s, int c) {
 
 // One predicted luma pel. p points at the pel's window origin: p[2*s+2]
 // is its integer sample, rows and columns -2..+3 around it are read.
-// frac = xFrac*4 + yFrac (ops/inter.py luma_predict_blocks).
-__device__ int luma_pel(const uint8_t* p, int s, int frac) {
+// frac = xFrac*4 + yFrac (ops/inter.py luma_predict_blocks). The centre
+// j is the vertical tap over the unclipped horizontal sums of rows 0..5:
+// from hs (hs[i*hp], computed once per window) when it is given, else
+// computed here.
+__device__ __forceinline__ int luma_pel(const uint8_t* p, int s, int frac,
+                                        const int16_t* hs = nullptr,
+                                        int hp = 0) {
   const int g = p[2 * s + 2];
   if (frac == 0) return g;
   const int x_frac = frac >> 2, y_frac = frac & 3;
@@ -104,14 +132,15 @@ __device__ int luma_pel(const uint8_t* p, int s, int frac) {
     const int h = clip8((ver(p, s, x_frac == 1 ? 2 : 3) + 16) >> 5);
     return avg(b, h);
   }
-  // the centre j from the unclipped horizontal intermediates of rows
-  // 0..5, then i, f, k, q average it with a half-pel neighbour
-  const int j = clip8((tap6(hor(p, s, 0), hor(p, s, 1), hor(p, s, 2),
-                            hor(p, s, 3), hor(p, s, 4), hor(p, s, 5)) +
+  // the centre j, then i, f, k, q average it with a half-pel neighbour
+  int hr[6];
+#pragma unroll
+  for (int i = 0; i < 6; ++i) hr[i] = hs ? hs[i * hp] : hor(p, s, i);
+  const int j = clip8((tap6(hr[0], hr[1], hr[2], hr[3], hr[4], hr[5]) +
                        512) >> 10);
   if (frac == 10) return j;
   if (x_frac == 2)                                 // f, q
-    return avg(clip8((hor(p, s, y_frac == 1 ? 2 : 3) + 16) >> 5), j);
+    return avg(clip8((hr[y_frac == 1 ? 2 : 3] + 16) >> 5), j);
   return avg(clip8((ver(p, s, x_frac == 1 ? 2 : 3) + 16) >> 5), j);  // i, k
 }
 
@@ -258,5 +287,330 @@ extern "C" int h264_mc_exception(const void* dpb_y, const void* dpb_cb,
       make_args(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, pred_y, pred_cb, pred_cr,
                 n_slots, width_mbs, height_mbs),
       (const int32_t*)exc_ids);
+  return (int)cudaGetLastError();
+}
+
+// ---- mc_recon_kernel: the main path's MC stage --------------------------
+
+constexpr int kReconThreads = 96;   // warps 0-1 luma, warp 2 Cb and Cr
+// shared memory, by path: a uniform MB's 21x21 luma window (row pitch 48),
+// its horizontal sums (21 x 16 int16) and two 9x9 chroma windows (pitch
+// 32); or a split MB's sixteen 9x9 luma windows (pitch 32), their sums (9
+// x 4 int16 each) and 2 x 16 3x3 chroma windows (pitch 8)
+constexpr int kUniY = 0, kUniHs = kUniY + 21 * 48, kUniC = kUniHs + 21 * 16 * 2;
+constexpr int kBlkY = 0, kBlkHs = kBlkY + 16 * 9 * 32, kBlkC = kBlkHs + 16 * 9 * 4 * 2;
+constexpr int kReconSmem = kBlkC + 32 * 3 * 8;
+static_assert(kUniC + 2 * 9 * 32 <= kReconSmem, "uniform path fits");
+static_assert(kUniHs % 16 == 0 && kUniC % 16 == 0 && kBlkHs % 16 == 0 &&
+              kBlkC % 16 == 0, "16-byte aligned windows");
+
+struct ReconArgs {
+  const uint8_t* dpb_y;       // (n_slots, H, W)
+  const uint8_t* dpb_cb;      // (n_slots, H/2, W/2)
+  const uint8_t* dpb_cr;
+  const uint32_t* mv;         // (nMB, 16) int16 pairs (x low, y high)
+  const int8_t* ref_slot;     // (nMB, 16)
+  const uint8_t* mb_class;    // (nMB,)
+  const int32_t* res_l;       // (nMB, 16, 16)
+  const int32_t* res_c;       // (nMB, 2, 8, 8)
+  const uint8_t* pcm_y;       // (nMB, 16, 16), or null: no I_PCM samples
+  const uint8_t* pcm_cb;      // (nMB, 8, 8)
+  const uint8_t* pcm_cr;
+  uint8_t* y;                 // (H, W)
+  uint8_t* cb;                // (H/2, W/2)
+  uint8_t* cr;
+  int n_slots;
+  int width_mbs;
+  int height_mbs;
+};
+
+struct Motion {
+  int x, y, slot;   // quarter-pel MV, DPB slot clamped into the ring
+};
+
+__device__ __forceinline__ Motion unpack_motion(uint32_t w, int slot) {
+  return Motion{(int)(int16_t)(w & 0xFFFF), (int)(int16_t)(w >> 16), slot};
+}
+
+__device__ __forceinline__ bool needs_j(int frac) {
+  const int xf = frac >> 2, yf = frac & 3;
+  return xf && yf && (xf == 2 || yf == 2);
+}
+
+// A ROWS x COLS window of a plane (one slot, h x w pels), staged into
+// shared memory. When its columns, rounded out to NW whole Words from xa =
+// x0 rounded down, lie inside the plane, its rows go as aligned Words and
+// the window starts at column x0 - xa of the staged rows (offset());
+// otherwise pel by pel with clamped columns, from column 0 (offset() -1).
+// Rows are clamped into the plane either way.
+template <typename Word, int ROWS, int COLS>
+struct Window {
+  static constexpr int B = sizeof(Word);
+  static constexpr int NW = (COLS + 2 * B - 2) / B;
+
+  __device__ static __forceinline__ int offset(int x0, int w) {
+    const int xa = x0 & ~(B - 1);
+    return (xa >= 0 && xa + NW * B <= w) ? x0 - xa : -1;
+  }
+
+  __device__ static __forceinline__ int staged_offset(int x0, int w) {
+    return max(offset(x0, w), 0);
+  }
+
+  // Thread t of NT stages the window whose top-left sample is (y0, x0)
+  // into dst (row pitch `pitch`): all its loads are issued before any of
+  // its stores, so a thread waits for one memory round trip, however many
+  // words or pels it moves. Returns the staged offset.
+  template <int NT>
+  __device__ static __forceinline__ int stage(uint8_t* dst, int pitch,
+                                              const uint8_t* plane, int h,
+                                              int w, int y0, int x0, int t) {
+    const int off = offset(x0, w);
+    if (off >= 0) {
+      constexpr int N = (ROWS * NW + NT - 1) / NT;
+      const uint8_t* base = plane + (x0 - off);
+      Word v[N];
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int i = t + j * NT;
+        if (i < ROWS * NW)
+          v[j] = reinterpret_cast<const Word*>(
+              base + (size_t)clampi(y0 + i / NW, 0, h - 1) * w)[i % NW];
+      }
+#pragma unroll
+      for (int j = 0; j < N; ++j) {
+        const int i = t + j * NT;
+        if (i < ROWS * NW)
+          reinterpret_cast<Word*>(dst + (i / NW) * pitch)[i % NW] = v[j];
+      }
+      return off;
+    }
+    constexpr int N = (ROWS * COLS + NT - 1) / NT;
+    uint8_t v[N];
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = t + j * NT;
+      if (i < ROWS * COLS)
+        v[j] = plane[(size_t)clampi(y0 + i / COLS, 0, h - 1) * w +
+                     clampi(x0 + i % COLS, 0, w - 1)];
+    }
+#pragma unroll
+    for (int j = 0; j < N; ++j) {
+      const int i = t + j * NT;
+      if (i < ROWS * COLS) dst[(i / COLS) * pitch + i % COLS] = v[j];
+    }
+    return 0;
+  }
+};
+
+// the windows: a uniform MB's luma (row pitch 48) and chroma (pitch 32),
+// a split MB's per-block luma (pitch 32) and chroma (pitch 8)
+using UniLuma = Window<uint4, 21, 21>;
+using UniChroma = Window<uint2, 9, 9>;
+using BlkLuma = Window<uint4, 9, 9>;
+using BlkChroma = Window<uint32_t, 3, 3>;
+static_assert(UniLuma::NW * 16 <= 48 && UniChroma::NW * 8 <= 32 &&
+              BlkLuma::NW * 16 <= 32 && BlkChroma::NW * 4 <= 8,
+              "staged rows fit their pitch");
+
+// row[x..x+3] of a plane row w pels wide, each column clamped into it: as
+// aligned words and a funnel shift when all four lie inside (w is a
+// multiple of 8, so the second word does too).
+__device__ __forceinline__ void direct4(const uint8_t* row, int x, int w,
+                                        int out[4]) {
+  if (x >= 0 && x + 4 <= w) {
+    const int xa = x & ~3, sh = x & 3;
+    const uint32_t lo = *reinterpret_cast<const uint32_t*>(row + xa);
+    const uint32_t hi =
+        sh ? *reinterpret_cast<const uint32_t*>(row + xa + 4) : lo;
+    const uint32_t v = __funnelshift_r(lo, hi, 8 * sh);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = (v >> (8 * k)) & 0xFF;
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) out[k] = row[clampi(x + k, 0, w - 1)];
+  }
+}
+
+// One block per MB. Thread t owns 4 horizontally adjacent pels: luma row
+// t/4, columns 4*(t%4).. for t < 64; for t >= 64, u = t - 64, row (u/2)%8,
+// columns 4*(u%2).. of Cb (u < 16) or Cr.
+__global__ void __launch_bounds__(kReconThreads) mc_recon_kernel(
+    ReconArgs a) {
+  __shared__ __align__(16) uint8_t smem[kReconSmem];
+  const int mb = blockIdx.x, t = threadIdx.x;
+  const int W = 16 * a.width_mbs, H = 16 * a.height_mbs;
+  const int Wc = W / 2, Hc = H / 2;
+  const int x16 = (mb % a.width_mbs) * 16, y16 = (mb / a.width_mbs) * 16;
+  const bool luma = t < 64;
+  const int u = luma ? t : t - 64;
+  const int pl = luma ? 0 : 1 + (u >> 4);            // 0 Y, 1 Cb, 2 Cr
+  const int r = luma ? u >> 2 : (u >> 1) & 7;
+  const int c0 = luma ? (u & 3) * 4 : (u & 1) * 4;
+  const int pw = luma ? W : Wc, ph = luma ? H : Hc;
+  uint8_t* out_plane = pl == 0 ? a.y : (pl == 1 ? a.cb : a.cr);
+  uint32_t* out = reinterpret_cast<uint32_t*>(
+      out_plane + (size_t)((luma ? y16 : y16 / 2) + r) * pw +
+      (luma ? x16 : x16 / 2) + c0);
+
+  // the MB's class and motion in one round trip (lanes 0-15 and 16-31 of
+  // each warp read blocks 0-15)
+  const int lane = t & 31;
+  const int cls = a.mb_class[mb];
+  const uint32_t mw = a.mv[mb * 16 + (lane & 15)];
+  const int ref = clampi(a.ref_slot[mb * 16 + (lane & 15)], 0, a.n_slots - 1);
+  // cheap MBs first: 0, or the I_PCM samples, without touching the ring
+  if (cls != 1 && cls != 2) {
+    uint32_t v = 0;
+    if (cls == 5 && a.pcm_y != nullptr) {
+      const uint8_t* src =
+          luma ? a.pcm_y + mb * 256 + r * 16 + c0
+               : (pl == 1 ? a.pcm_cb : a.pcm_cr) + mb * 64 + r * 8 + c0;
+      v = *reinterpret_cast<const uint32_t*>(src);
+    }
+    *out = v;
+    return;
+  }
+  const int4 res = *reinterpret_cast<const int4*>(
+      luma ? a.res_l + mb * 256 + r * 16 + c0
+           : a.res_c + mb * 128 + (pl - 1) * 64 + r * 8 + c0);
+  const uint8_t* ring = pl == 0 ? a.dpb_y : (pl == 1 ? a.dpb_cb : a.dpb_cr);
+  const size_t slot_pels = (size_t)ph * pw;
+
+  // uniform: all 16 blocks carry block 0's MV and slot (each warp decides
+  // alike); a block's motion comes from the lane that loaded it
+  const unsigned full = 0xFFFFFFFFu;
+  const uint32_t mw0 = __shfl_sync(full, mw, 0);
+  const int ref0 = __shfl_sync(full, ref, 0);
+  const bool uniform = __all_sync(full, mw == mw0 && ref == ref0);
+  auto motion_of = [&](int b) {
+    return unpack_motion(__shfl_sync(full, mw, b), __shfl_sync(full, ref, b));
+  };
+
+  int pred[4];
+  if (uniform) {
+    const Motion m = motion_of(0);
+    const int frac = (m.x & 3) * 4 + (m.y & 3);
+    const int xf = m.x & 7, yf = m.y & 7;
+    const uint8_t* base = ring + m.slot * slot_pels;
+    uint8_t* wy = smem + kUniY;
+    int16_t* hs = reinterpret_cast<int16_t*>(smem + kUniHs);
+    uint8_t* wc = smem + kUniC + (pl - 1) * 9 * 32;
+    const int ly0 = y16 + (m.y >> 2) - 2, lx0 = x16 + (m.x >> 2) - 2;
+    const int cy0 = y16 / 2 + (m.y >> 3), cx0 = x16 / 2 + (m.x >> 3);
+    int off = 0;
+    if (luma && frac)
+      off = UniLuma::stage<64>(wy, 48, base, H, W, ly0, lx0, t);
+    if (!luma && (xf | yf))
+      off = UniChroma::stage<16>(wc, 32, base, Hc, Wc, cy0, cx0, u & 15);
+    __syncthreads();
+    if (luma && needs_j(frac))
+      for (int i = t; i < 21 * 16; i += 64)
+        hs[i] = (int16_t)hor(wy + (i >> 4) * 48 + off + (i & 15), 48, 0);
+    __syncthreads();
+    if (luma) {
+      if (frac == 0) {
+        direct4(base + (size_t)clampi(y16 + r + (m.y >> 2), 0, H - 1) * W,
+                x16 + c0 + (m.x >> 2), W, pred);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          pred[k] = luma_pel(wy + r * 48 + off + c0 + k, 48, frac,
+                             hs + r * 16 + c0 + k, 16);
+      }
+    } else if (!(xf | yf)) {
+      direct4(base + (size_t)clampi(cy0 + r, 0, Hc - 1) * Wc, cx0 + c0, Wc,
+              pred);
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        pred[k] = chroma_pel(wc + r * 32 + off + c0 + k, 32, xf, yf);
+    }
+  } else {
+    // per 4x4 block: a 9x9 luma window (4 threads each) unless its MV is
+    // integer, and two 3x3 chroma windows (one thread each)
+    uint8_t* wb = smem + kBlkY;
+    int16_t* hb = reinterpret_cast<int16_t*>(smem + kBlkHs);
+    uint8_t* cw = smem + kBlkC;
+    {
+      const int b = luma ? t >> 2 : u & 15;
+      const Motion m = motion_of(b);
+      const int bx = x16 + (b & 3) * 4, by = y16 + (b >> 2) * 4;
+      const uint8_t* base = ring + m.slot * slot_pels;
+      const int frac = (m.x & 3) * 4 + (m.y & 3);
+      const int lx0 = bx + (m.x >> 2) - 2;
+      int off = 0;
+      if (luma && frac)
+        off = BlkLuma::stage<4>(wb + b * 288, 32, base, H, W,
+                                by + (m.y >> 2) - 2, lx0, t & 3);
+      if (!luma)
+        BlkChroma::stage<1>(cw + u * 24, 8, base, Hc, Wc,
+                            (by >> 1) + (m.y >> 3), (bx >> 1) + (m.x >> 3),
+                            0);
+      __syncthreads();
+      if (luma && needs_j(frac))
+        for (int i = t & 3; i < 36; i += 4)
+          hb[b * 36 + i] = (int16_t)hor(
+              wb + b * 288 + (i >> 2) * 32 + off + (i & 3), 32, 0);
+      __syncthreads();
+    }
+    if (luma) {
+      const int b = (r >> 2) * 4 + (c0 >> 2), rr = r & 3;
+      const Motion m = motion_of(b);
+      const int bx = x16 + c0, by = y16 + (r & ~3);
+      const int frac = (m.x & 3) * 4 + (m.y & 3);
+      const uint8_t* base = ring + m.slot * slot_pels;
+      if (frac == 0) {
+        direct4(base + (size_t)clampi(by + rr + (m.y >> 2), 0, H - 1) * W,
+                bx + (m.x >> 2), W, pred);
+      } else {
+        const int off = BlkLuma::staged_offset(bx + (m.x >> 2) - 2, W);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          pred[k] = luma_pel(wb + b * 288 + rr * 32 + off + k, 32, frac,
+                             hb + b * 36 + rr * 4 + k, 4);
+      }
+    } else {
+      // pels c0..c0+3 of chroma row r: two blocks, two pels each
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int b = (r >> 1) * 4 + (c0 >> 1) + h;
+        const Motion m = motion_of(b);
+        const int bx = x16 + (b & 3) * 4;
+        const int off =
+            BlkChroma::staged_offset((bx >> 1) + (m.x >> 3), Wc);
+        const uint8_t* w = cw + ((pl - 1) * 16 + b) * 24 + (r & 1) * 8 + off;
+#pragma unroll
+        for (int k = 0; k < 2; ++k)
+          pred[2 * h + k] = chroma_pel(w + k, 8, m.x & 7, m.y & 7);
+      }
+    }
+  }
+  // the inter combine, stored as one word into the plane row
+  *out = (uint32_t)clip8(pred[0] + res.x) |
+         (uint32_t)clip8(pred[1] + res.y) << 8 |
+         (uint32_t)clip8(pred[2] + res.z) << 16 |
+         (uint32_t)clip8(pred[3] + res.w) << 24;
+}
+
+extern "C" int h264_mc_recon(const void* dpb_y, const void* dpb_cb,
+                             const void* dpb_cr, const void* mv,
+                             const void* ref_slot, const void* mb_class,
+                             const void* res_l, const void* res_c,
+                             const void* pcm_y, const void* pcm_cb,
+                             const void* pcm_cr, void* y, void* cb, void* cr,
+                             int n_slots, int width_mbs, int height_mbs,
+                             void* stream) {
+  const ReconArgs a{(const uint8_t*)dpb_y,  (const uint8_t*)dpb_cb,
+                    (const uint8_t*)dpb_cr, (const uint32_t*)mv,
+                    (const int8_t*)ref_slot, (const uint8_t*)mb_class,
+                    (const int32_t*)res_l,  (const int32_t*)res_c,
+                    (const uint8_t*)pcm_y,  (const uint8_t*)pcm_cb,
+                    (const uint8_t*)pcm_cr, (uint8_t*)y,
+                    (uint8_t*)cb,           (uint8_t*)cr,
+                    n_slots,                width_mbs,
+                    height_mbs};
+  mc_recon_kernel<<<width_mbs * height_mbs, kReconThreads, 0,
+                    (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

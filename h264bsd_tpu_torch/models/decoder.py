@@ -96,8 +96,7 @@ PARAM_SET_ERROR = fe.PARAM_SET_ERROR
 
 
 def _frame_decode_body(row, dpb, pcm, width_mbs, height_mbs, caps,
-                       intra_wavefront, has_inter=True, n_exc=None,
-                       spiral=None):
+                       intra_wavefront, spiral=None):
     """One full frame on the device: unpack, reconstruct (motion
     compensation from the ring `dpb`), conceal, deblock, store into the
     ring slot (in place).
@@ -105,8 +104,7 @@ def _frame_decode_body(row, dpb, pcm, width_mbs, height_mbs, caps,
     row: int32 (ROW_SCALARS + blob words,) on the device, the frame's
     slot, conceal_from_ref and conceal_ref_slot then its blob. Nothing is
     read back to the host, so the same work serves every frame of a shape
-    (models/graphs.py captures it). n_exc: the real count of motion
-    exception quads, or None to walk the padded list. spiral, a pair
+    (models/graphs.py captures it). spiral, a pair
     (numpy (nMB,) bool of the decoded MBs, conceal_from_ref), selects the
     exact spiral concealment on the host for a partial loss without a
     usable reference (eager frames only)."""
@@ -117,7 +115,7 @@ def _frame_decode_body(row, dpb, pcm, width_mbs, height_mbs, caps,
     y, cb, cr, t = reconstruct_frame_fast(
         packed, slice_table, sparse_ids, sparse_levels, mv_exc_ids,
         mv_exc_payload, intra_mbs, intra_payload, pcm, dpb, width_mbs,
-        height_mbs, intra_wavefront, slice_ids, has_inter, n_exc)
+        height_mbs, intra_wavefront, slice_ids)
 
     # concealment of lost MBs (mb_class 6); motion compensation above and
     # the concealment reference read other ring slots, never the slot
@@ -324,7 +322,7 @@ class Decoder:
         return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
                     n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
                     has_inter=info["used_slot_count"] > 0,
-                    n_exc=counts[4], ipcm=self._fe.ipcm(),
+                    ipcm=self._fe.ipcm(),
                     non_existing=non_existing)
 
     def _stage(self, preps):
@@ -345,11 +343,11 @@ class Decoder:
 
     @staticmethod
     def _body_args(prep):
-        """The frame body's static arguments: with the ring's slot count
-        and the blob's length they make the graph key."""
+        """The frame body's static arguments: with the ring's slot count,
+        the blob's length and has_inter (whether the picture references a
+        slot) they make the graph key."""
         return dict(width_mbs=prep["w_mbs"], height_mbs=prep["h_mbs"],
-                    caps=prep["caps"], intra_wavefront=prep["wavefront"],
-                    has_inter=prep["has_inter"])
+                    caps=prep["caps"], intra_wavefront=prep["wavefront"])
 
     def _windowable(self, prep) -> bool:
         """True when the frame can run the graphed body: nothing
@@ -397,8 +395,7 @@ class Decoder:
             mb_class = blob[64:64 + n_mbs * 8].reshape(n_mbs, 8)[:, 1] & 7
             spiral = (mb_class != 6, bool(info["conceal_from_ref"]))
         _frame_decode_body(self._stage([prep])[0], self._dpb, pcm,
-                           **self._body_args(prep), n_exc=prep["n_exc"],
-                           spiral=spiral)
+                           **self._body_args(prep), spiral=spiral)
         STATS["eager_frames"] += 1
 
     def _run_graphed(self, prep, row):

@@ -53,6 +53,7 @@ ENTRY = {
                              [_P] * 13 + [_I, _I, _P]),
     "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),
     "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 4 + [_P]),
+    "h264_mc_recon": ("mc_recon", "mc", [_P] * 14 + [_I] * 3 + [_P]),
     "h264_idct_blocks": ("idct_blocks", "transform", [_P] * 5 + [_I, _P]),
     "h264_residual_sparse": ("residual_sparse", "transform",
                              [_P] * 9 + [_I, _I, _P]),

@@ -1,16 +1,28 @@
-"""Motion-compensation kernels (K3+K4, K5+K6): wrapper and plain versions.
+"""Motion compensation (K3-K6): the kernels' wrappers and plain versions.
 
 Counterpart of the JAX package's ops/pallas_mc.py (mc_predict_grids :409,
-_mc_predict_group :457). The kernels are in csrc/mc.cu:
+_mc_predict_group :457) and of its inter combine (ops/reconstruct.py
+:168-218). The kernels are in csrc/mc.cu.
+
+The main path runs mc_recon_cuda: one launch of mc_recon_kernel per
+picture predicts every 4x4 block of the inter MBs from the dense
+per-block motion, adds and clips the residual, takes the I_PCM samples
+and writes the planes. Predicting every block with its own MV and slot is
+exact: the front-end lists a quad as an exception exactly when one of its
+blocks differs from block 0, so the dense motion is block 0's with the
+exception quads scattered in.
+
+mc_predict_grids keeps the TPU kernels' own signature, off the main path:
 mc_uniform_kernel predicts every MB whole with block 0's MV and slot (the
 TPU's _uniform_luma_kernel and _uniform_chroma_kernel), then
 mc_exception_kernel predicts the listed 8x8 quads block by block (the
 TPU's _exc_luma_kernel and _exc_chroma_kernel) and writes them over the
-uniform result. Both read the DPB ring in place, each block from its own
-slot, so there is no padded copy of the referenced slots and no pass per
-group of slots (pallas_mc.py:406-454 has no counterpart).
+uniform result.
 
-The plain versions are built from ops/inter.py, the CPU path and oracle.
+Every kernel reads the DPB ring in place, each block from its own slot,
+so there is no padded copy of the referenced slots and no pass per group
+of slots (pallas_mc.py:406-454 has no counterpart). The plain versions
+are built from ops/inter.py, the CPU path and oracle.
 """
 
 from __future__ import annotations
@@ -18,7 +30,8 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .inter import block_positions, inter_predict_frame, predict_blocks
+from .inter import (block_positions, inter_predict_frame,
+                    mb_grid_to_plane, predict_blocks)
 
 # raster blocks of each 8x8 quadrant (front-end kQuadBlocks)
 QUAD_BLOCKS = ((0, 1, 4, 5), (2, 3, 6, 7), (8, 9, 12, 13), (10, 11, 14, 15))
@@ -145,3 +158,62 @@ def mc_predict_grids(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, exc_ids,
                             height_mbs)
     return mc_exception_cuda(*grids, dpb_y, dpb_cb, dpb_cr, mv, ref_slot,
                              exc_ids, width_mbs, height_mbs, n_exc)
+
+
+def mc_recon_plain(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l,
+                   res_c, pcm, width_mbs, height_mbs):
+    """The picture before its intra pass: clip(pred + res) on the inter
+    MBs (mb_class 1 or 2), each 4x4 block predicted by ops.inter with its
+    own MV and slot; the I_PCM samples on class-5 MBs when pcm, the
+    (pcm_y, pcm_cb, pcm_cr) uint8 grids of build_pcm_tensors, is given;
+    0 on every other MB. res_l (nMB,16,16) and res_c (nMB,2,8,8) int32.
+    Returns u8 planes (H, W), (H/2, W/2), (H/2, W/2)."""
+    pred = inter_predict_frame(dpb_y, dpb_cb, dpb_cr, mv, ref_slot,
+                               width_mbs, height_mbs)
+    inter = ((mb_class == 1) | (mb_class == 2))[:, None, None]
+    res = (res_l, res_c[:, 0], res_c[:, 1])
+    grids = [torch.where(inter, (p + r).clamp(0, 255), 0).to(torch.uint8)
+             for p, r in zip(pred, res)]
+    if pcm is not None:
+        is_pcm = (mb_class == 5)[:, None, None]
+        grids = [torch.where(is_pcm, p, g) for p, g in zip(pcm, grids)]
+    return tuple(mb_grid_to_plane(g, width_mbs, height_mbs) for g in grids)
+
+
+def mc_recon_cuda(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l,
+                  res_c, pcm, width_mbs, height_mbs):
+    """The main path's MC stage (see mc_recon_plain) as one launch of
+    mc_recon_kernel, on the tensors as unpack_meta and the residual stage
+    return them: mv int16 (nMB,16,2), ref_slot int8 (nMB,16), mb_class
+    uint8 (nMB,), res_l / res_c int32; no casts, no copies. CPU tensors
+    run the plain version."""
+    if dpb_y.device.type == "cpu":
+        return mc_recon_plain(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class,
+                              res_l, res_c, pcm, width_mbs, height_mbs)
+    n = width_mbs * height_mbs
+    H, W = 16 * height_mbs, 16 * width_mbs
+    s = dpb_y.shape[0]
+    dev = dpb_y.device
+    u8, p = torch.uint8, _kernels.ptr
+    planes = (torch.empty((H, W), dtype=u8, device=dev),
+              torch.empty((H // 2, W // 2), dtype=u8, device=dev),
+              torch.empty((H // 2, W // 2), dtype=u8, device=dev))
+    pcm_ptrs = [None] * 3 if pcm is None else [
+        p(g, u8, shape, name, 4) for g, shape, name in
+        zip(pcm, ((n, 16, 16), (n, 8, 8), (n, 8, 8)),
+            ("pcm_y", "pcm_cb", "pcm_cr"))]
+    _kernels.launch(
+        "h264_mc_recon", dev,
+        p(dpb_y, u8, (s, H, W), "dpb_y", 16),
+        p(dpb_cb, u8, (s, H // 2, W // 2), "dpb_cb", 8),
+        p(dpb_cr, u8, (s, H // 2, W // 2), "dpb_cr", 8),
+        p(mv, torch.int16, (n, 16, 2), "mv", 4),
+        p(ref_slot, torch.int8, (n, 16), "ref_slot"),
+        p(mb_class, u8, (n,), "mb_class"),
+        p(res_l, torch.int32, (n, 16, 16), "res_l", 16),
+        p(res_c, torch.int32, (n, 2, 8, 8), "res_c", 16),
+        *pcm_ptrs,
+        *(p(pl, u8, tuple(pl.shape), name, 4)
+          for pl, name in zip(planes, ("y", "cb", "cr"))),
+        s, width_mbs, height_mbs)
+    return planes

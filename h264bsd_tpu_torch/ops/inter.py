@@ -171,3 +171,16 @@ def inter_predict_frame(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
         return out.reshape(n_mb, 8, 8)
 
     return pred_y, assemble(pcb), assemble(pcr)
+
+
+def mb_grid_to_plane(mbs, width_mbs, height_mbs):
+    """(nMB, S, S) -> (height_mbs*S, width_mbs*S), contiguous."""
+    s = mbs.shape[-1]
+    x = mbs.reshape(height_mbs, width_mbs, s, s).permute(0, 2, 1, 3)
+    return x.reshape(height_mbs * s, width_mbs * s).contiguous()
+
+
+def plane_to_mb_grid(plane, size):
+    h, w = plane.shape
+    x = plane.reshape(h // size, size, w // size, size).permute(0, 2, 1, 3)
+    return x.reshape(-1, size, size)

@@ -6,10 +6,11 @@ Counterpart of the JAX package's ops/reconstruct.py (reconstruct_frame_fast
 per-macroblock interleaved loop (h264bsd_slice_data.c:131-220):
 
   1. sparse dequant+IDCT                      (K9, ops.cuda_transform)
-  2. motion compensation from the DPB ring    (K3-K6, ops.cuda_mc)
-  3. inter combine: clip(pred + res) on P and P_Skip MBs (image.c:172)
-  4. I_PCM raw-sample merge                   (macroblock_layer.c:992-1022)
-  5. intra prediction + residual + clip       (K7 wavefront or K2 list)
+  2. one pass (K3-K6, ops.cuda_mc.mc_recon_cuda) writes the planes:
+     motion compensation from the DPB ring and the inter combine
+     clip(pred + res) on P and P_Skip MBs (image.c:172), the I_PCM raw
+     samples (macroblock_layer.c:992-1022), 0 on the other MBs
+  3. intra prediction + residual + clip       (K7 wavefront or K2 list)
 
 The output planes are the pre-deblocking picture.
 """
@@ -17,26 +18,12 @@ The output planes are the pre-deblocking picture.
 from __future__ import annotations
 
 import numpy as np
-import torch
 
 from .cuda_intra import intra_pass_cuda
 from .cuda_intra_wf import intra_pass_wavefront_cuda
-from .cuda_mc import mc_predict_grids
+from .cuda_mc import mc_recon_cuda
 from .cuda_transform import residual_planes_sparse_cuda
 from .unpack import unpack_meta
-
-
-def mb_grid_to_plane(mbs, width_mbs, height_mbs):
-    """(nMB, S, S) -> (height_mbs*S, width_mbs*S), contiguous."""
-    s = mbs.shape[-1]
-    x = mbs.reshape(height_mbs, width_mbs, s, s).permute(0, 2, 1, 3)
-    return x.reshape(height_mbs * s, width_mbs * s).contiguous()
-
-
-def plane_to_mb_grid(plane, size):
-    h, w = plane.shape
-    x = plane.reshape(h // size, size, w // size, size).permute(0, 2, 1, 3)
-    return x.reshape(-1, size, size)
 
 
 def build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data):
@@ -56,21 +43,15 @@ def build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data):
 def reconstruct_frame_fast(packed, slice_table, sparse_ids, sparse_levels,
                            mv_exc_ids, mv_exc_payload, intra_mbs,
                            intra_payload, pcm, dpb, width_mbs, height_mbs,
-                           intra_wavefront=False, slice_ids=None,
-                           has_inter=True, n_exc=None):
+                           intra_wavefront=False, slice_ids=None):
     """Unpack the per-MB metadata, transform the sparse residual and
     reconstruct the picture. `pcm` is the (pcm_y, pcm_cb, pcm_cr) uint8
     tensors of build_pcm_tensors, or None for a picture without I_PCM
-    MBs; `dpb` the (y, cb, cr) ring the inter MBs predict from. With
-    has_inter False (a picture that references no slot, so has no inter
-    MB) motion compensation is skipped: the combine would select
-    nothing. n_exc is the real count of motion-exception quads, or None
-    to walk every entry of the padded list (see
-    ops.cuda_mc.mc_predict_grids). The intra stage walks the intra-MB
-    list (K2) or the anti-diagonal wavefront (K7), chosen by the caller
-    from the frame's intra-MB count. Returns (y, cb, cr, tensors)."""
+    MBs; `dpb` the (y, cb, cr) ring the inter MBs predict from. The
+    intra stage walks the intra-MB list (K2) or the anti-diagonal
+    wavefront (K7), chosen by the caller from the frame's intra-MB
+    count. Returns (y, cb, cr, tensors)."""
     n_mb = width_mbs * height_mbs
-    dev = packed.device
     t = unpack_meta(packed, slice_table, mv_exc_ids, mv_exc_payload,
                     intra_mbs, intra_payload, n_mb, slice_ids,
                     sparse_ids=sparse_ids)
@@ -79,24 +60,12 @@ def reconstruct_frame_fast(packed, slice_table, sparse_ids, sparse_levels,
         sparse_ids.reshape(-1), sparse_levels, t["qp_y"],
         t["chroma_qp_offset"], t["nnz_dc"], mb_class == 4, n_mb)
 
-    # inter MBs: clip(pred + res); every other MB starts at 0, I_PCM
-    # samples land next and intra MBs are overwritten below. I_PCM lands
-    # before the intra pass because intra neighbours may predict from it
-    # (macroblock_layer.c:992-1022 writes it inline)
-    if has_inter:
-        pred = mc_predict_grids(*dpb, t["mv"], t["ref_slot"], mv_exc_ids,
-                                width_mbs, height_mbs, n_exc)
-        inter = ((mb_class == 1) | (mb_class == 2))[:, None, None]
-        res = (res_l, res_c[:, 0], res_c[:, 1])
-        grids = [torch.where(inter, (p.to(torch.int32) + r).clamp(0, 255),
-                             0).to(torch.uint8) for p, r in zip(pred, res)]
-    else:
-        grids = [torch.zeros((n_mb, s, s), dtype=torch.uint8, device=dev)
-                 for s in (16, 8, 8)]
-    if pcm is not None:
-        is_pcm = (mb_class == 5)[:, None, None]
-        grids = [torch.where(is_pcm, p, g) for p, g in zip(pcm, grids)]
-    y, cb, cr = (mb_grid_to_plane(g, width_mbs, height_mbs) for g in grids)
+    # inter MBs clip(pred + res), I_PCM samples, every other MB 0; intra
+    # MBs are overwritten below. I_PCM lands before the intra pass because
+    # intra neighbours may predict from it (macroblock_layer.c:992-1022
+    # writes it inline)
+    y, cb, cr = mc_recon_cuda(*dpb, t["mv"], t["ref_slot"], mb_class, res_l,
+                              res_c, pcm, width_mbs, height_mbs)
 
     intra_args = (mb_class, t["i4_modes"], t["i4_avail"], t["mb_avail"],
                   t["i16_mode"], t["chroma_mode"], res_l, res_c, width_mbs,

@@ -203,6 +203,117 @@ def mc_inputs(case, device):
     return tuple(t[k] for k in MC_STATE)
 
 
+def _edge_targets(rng, pos, size, extent):
+    """Per unit at luma position pos (size pels wide, in a plane extent
+    pels long), a target position whose window (-2..+3 taps) crosses the
+    plane's near or far edge, or lies beyond it."""
+    near = rng.random(len(pos)) < 0.5
+    return np.where(near, rng.integers(-size - 8, 1, len(pos)),
+                    rng.integers(extent - size, extent + 8, len(pos)))
+
+
+def mc_recon_case(seed, w_mbs, h_mbs, n_slots, exc_share, pcm=False,
+                  motion="mixed") -> dict:
+    """mc_case, plus what the MC stage of the main path takes beside the
+    motion (ops.cuda_mc.mc_recon_cuda): mb_class per MB, mostly P_Skip
+    (1) and P (2), a share Intra_4x4 / Intra_16x16 (3, 4) and concealed
+    (6), with every slot -1 MB intra; int32 residuals res_l (nMB,16,16)
+    and res_c (nMB,2,8,8), zero on most 4x4 blocks and up to +-300 on
+    the rest, so sums clip on both sides; with pcm, random PCM grids and
+    class 5 on a few MBs. motion "edge" moves every MB (every block of the
+    exception MBs) so that its window crosses a left or right frame edge,
+    and a top or bottom one where the vertical MV limit reaches it;
+    "integer" rounds every MV to whole luma pels, half of them to whole
+    chroma pels. The low MV bits of mc_case stay where they are
+    fractional."""
+    c = mc_case(seed, w_mbs, h_mbs, n_slots, exc_share)
+    rng = np.random.default_rng(seed + 2000)
+    n = w_mbs * h_mbs
+    H, W = h_mbs * 16, w_mbs * 16
+    mv = c["mv"].astype(np.int64)
+    if motion == "edge":
+        exc_mb = np.zeros(n, bool)
+        exc_mb[c["exc_ids"][:c["n_exc"]] // 4] = True
+        mb = np.repeat(np.arange(n), 16)
+        b = np.tile(np.arange(16), n)
+        blk = exc_mb[mb]
+        # a uniform MB moves whole (block 0's unit), an exception MB per
+        # block
+        x = mb % w_mbs * 16 + np.where(blk, b % 4 * 4, 0)
+        y = mb // w_mbs * 16 + np.where(blk, b // 4 * 4, 0)
+        size = np.where(blk, 4, 16)
+        unit = np.where(blk, mb * 16 + b, mb * 16)
+        tx = _edge_targets(rng, x, size, W)[unit]
+        ty = _edge_targets(rng, y, size, H)[unit]
+        low = mv.reshape(-1, 2) & 7
+        mvx = (tx - x) * 4
+        mvy = np.clip((ty - y) * 4, MV_MIN_Y + 8, MV_MAX_Y - 8)
+        mv = np.stack([mvx & ~7 | low[:, 0], mvy & ~7 | low[:, 1]],
+                      axis=-1).reshape(n, 16, 2)
+    elif motion == "integer":
+        # per unit: a uniform MB rounds its one MV, a split MB each block's
+        whole_chroma = rng.random((n, 16, 1)) < 0.5
+        uniform = (mv == mv[:, :1]).all((1, 2))
+        whole_chroma = np.where(uniform[:, None, None], whole_chroma[:, :1],
+                                whole_chroma)
+        mv = np.where(whole_chroma, mv & ~7, mv & ~3)
+    cls = np.where(rng.random(n) < 0.5, 1, 2)
+    roll = rng.random(n)
+    cls = np.where(roll < 0.1, rng.integers(3, 5, n), cls)
+    cls = np.where((roll >= 0.1) & (roll < 0.13), 6, cls)
+    cls = np.where(c["ref_slot"][:, 0] == -1, rng.integers(3, 5, n), cls)
+    if pcm:
+        cls = np.where(rng.random(n) < 0.05, 5, cls)
+        c.update(pcm_y=rng.integers(0, 256, (n, 16, 16), dtype=np.uint8),
+                 pcm_cb=rng.integers(0, 256, (n, 8, 8), dtype=np.uint8),
+                 pcm_cr=rng.integers(0, 256, (n, 8, 8), dtype=np.uint8))
+
+    def residual(shape, blocks):
+        on = rng.random(blocks) < 0.3
+        vals = rng.integers(-300, 301, shape)
+        mask = np.repeat(np.repeat(on, 4, axis=-2), 4, axis=-1)
+        return (vals * mask).astype(np.int32)
+
+    c.update(mv=mv.astype(np.int16), mb_class=cls.astype(np.uint8),
+             res_l=residual((n, 16, 16), (n, 4, 4)),
+             res_c=residual((n, 2, 8, 8), (n, 2, 2, 2)))
+    return c
+
+
+def mc_recon_kind_cases(w_mbs, h_mbs, seed=16):
+    """Frames whose MBs all take one path of the MC stage's kernel, to time
+    it path by path: [(label, case)] for all intra (each MB written 0),
+    all inter with whole-pel MVs (no window), uniform with fractional
+    MVs, split (every MB's blocks carry their own motion), and with every
+    window across a frame edge; 4 reference slots."""
+    out = []
+    for label, share, motion, cls in (
+            ("all intra", 0.0, "mixed", 3),
+            ("all inter, whole-pel MVs", 0.0, "integer", 2),
+            ("all inter, uniform", 0.0, "mixed", 2),
+            ("all inter, split", 1.0, "mixed", 2),
+            ("all inter, edge windows", 0.06, "edge", 2)):
+        case = mc_recon_case(seed, w_mbs, h_mbs, 4, share, motion=motion)
+        case["mb_class"][:] = cls
+        out.append((label, case))
+    return out
+
+
+MC_RECON_STATE = ("dpb_y", "dpb_cb", "dpb_cr", "mv", "ref_slot",
+                  "mb_class", "res_l", "res_c")
+
+
+def mc_recon_inputs(case, device):
+    """(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l, res_c, pcm)
+    on `device`: the leading arguments of mc_recon_cuda (width_mbs and
+    height_mbs follow); pcm is None for a case without PCM grids."""
+    t = from_numpy(case, device)
+    pcm = None
+    if "pcm_y" in case:
+        pcm = (t["pcm_y"], t["pcm_cb"], t["pcm_cr"])
+    return tuple(t[k] for k in MC_RECON_STATE) + (pcm,)
+
+
 def idct_case(seed, n) -> dict:
     """N random blocks for K9 (idct_blocks): int16-range levels as int32
     (within +-2048, so no int32 product or butterfly overflows), the

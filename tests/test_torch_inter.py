@@ -155,8 +155,9 @@ def test_mc_case_covers_every_case():
 
 
 def _motion_frames(data):
-    """Per picture: pic_info, the real exception count and the unpacked
-    MB tensors, read through the port's front-end and unpack_meta."""
+    """Per picture: pic_info, the real exception count (the ids that are
+    not padding) and the unpacked MB tensors, read through the port's
+    front-end and unpack_meta."""
     dec = Decoder(device="cpu")
     frames = []
     errs = []
@@ -172,7 +173,7 @@ def _motion_frames(data):
                                       *prep["caps"])
             t = unpack_meta(packed, stab, eids, epay, iids, ipay, n,
                             slice_ids, sparse_ids=sids)
-            frames.append((prep["info"], prep["n_exc"], t))
+            frames.append((prep["info"], int((eids < n * 4).sum()), t))
             while (o := dec._fe.next_output()) is not None:
                 errs.append(o["num_err_mbs"])
         elif status >= fe.ERROR and read == 0:

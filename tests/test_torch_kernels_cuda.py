@@ -27,6 +27,7 @@ from h264bsd_tpu_torch.ops.cuda_intra_wf import (intra_pass_wavefront_cuda,
                                                  intra_pass_wavefront_plain)
 from h264bsd_tpu_torch.ops.cuda_mc import (mc_exception_cuda,
                                            mc_exception_plain,
+                                           mc_recon_cuda, mc_recon_plain,
                                            mc_uniform_cuda, mc_uniform_plain)
 from h264bsd_tpu_torch.ops.cuda_transform import (
     idct_blocks, residual_planes_sparse_cuda)
@@ -39,6 +40,8 @@ from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE,
                                                   deblock_inputs, idct_case,
                                                   intra_case, intra_inputs,
                                                   mc_case, mc_inputs,
+                                                  mc_recon_case,
+                                                  mc_recon_inputs,
                                                   padded_intra_ids,
                                                   residual_case,
                                                   residual_edge_case)
@@ -318,6 +321,77 @@ def test_mc_exception_kernel_without_entries_does_not_launch(dev):
     _assert_planes_equal(got, grids)
     assert case["n_exc"] == 0
     assert _kernels.LAUNCHES["mc_exception"] == before
+
+
+def _one_mc_recon_launch(args, dims):
+    """mc_recon_cuda on args, counting launches: one of mc_recon, none of
+    the other MC kernels."""
+    before = dict(_kernels.LAUNCHES)
+    got = mc_recon_cuda(*args, *dims)
+    after = dict(_kernels.LAUNCHES)
+    assert after["mc_recon"] == before["mc_recon"] + 1
+    for k in ("mc_uniform", "mc_exception"):
+        assert after[k] == before[k]
+    return got
+
+
+@pytest.mark.parametrize("seed,dims,n_slots", MC_CASES)
+@pytest.mark.parametrize("pcm", [False, True])
+def test_mc_recon_kernel(dev, seed, dims, n_slots, pcm):
+    args = mc_recon_inputs(mc_recon_case(seed, *dims, n_slots, 0.25,
+                                         pcm=pcm), dev)
+    got = _one_mc_recon_launch(args, dims)
+    _assert_planes_equal(got, mc_recon_plain(*args, *dims))
+
+
+# every MB's (every split block's) window across a frame edge, and MVs of
+# whole luma pels only (half of them whole chroma pels too)
+@pytest.mark.parametrize("motion", ["edge", "integer"])
+@pytest.mark.parametrize("seed,dims,n_slots", [(3, (20, 12), 4),
+                                               (4, (120, 68), 16)])
+def test_mc_recon_kernel_edge_and_integer(dev, motion, seed, dims, n_slots):
+    args = mc_recon_inputs(mc_recon_case(seed, *dims, n_slots, 0.25,
+                                         pcm=True, motion=motion), dev)
+    got = _one_mc_recon_launch(args, dims)
+    _assert_planes_equal(got, mc_recon_plain(*args, *dims))
+
+
+def test_mc_recon_kernel_graph_replays(dev):
+    """50 replays of one captured call at 1080p, each into planes filled
+    with a sentinel first: every replay writes every pel, as the plain
+    version does."""
+    dims = (120, 68)
+    args = mc_recon_inputs(mc_recon_case(5, *dims, 4, 0.06, pcm=True), dev)
+    want = mc_recon_plain(*args, *dims)
+    mc_recon_cuda(*args, *dims)                # warm: the library
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = mc_recon_cuda(*args, *dims)
+    for k in range(50):
+        for o in out:
+            o.fill_(0xA5)
+        graph.replay()
+        torch.cuda.synchronize()
+        for g, w, name in zip(out, want, ("y", "cb", "cr")):
+            assert torch.equal(g, w), f"replay {k} {name}"
+
+
+def test_p_decode_runs_mc_recon_only(dev):
+    """The 6x4 motion stream on the card: the same pictures as the CPU
+    decode, through mc_recon and neither mc_uniform nor mc_exception."""
+    from h264bsd_tpu_torch.models import decoder as tdec
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+
+    data = make_motion_stream(6, 4, 4, seed=0)
+    before = dict(_kernels.LAUNCHES)
+    got = [p.yuv_bytes() for p in tdec.decode_stream(data, device=dev)]
+    after = dict(_kernels.LAUNCHES)
+    want = [p.yuv_bytes() for p in tdec.decode_stream(data, device="cpu")]
+    assert got == want and len(got) == 4
+    assert after["mc_recon"] >= before["mc_recon"] + 4
+    for k in ("mc_uniform", "mc_exception"):
+        assert after[k] == before[k]
 
 
 @pytest.mark.parametrize("n", [512, 8192, 1000])

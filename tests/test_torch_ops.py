@@ -22,8 +22,8 @@ from h264bsd_tpu_torch.models.decoder import WF_THRESH, caps_from_counts
 from h264bsd_tpu_torch.models.state import from_numpy, tensor_from_numpy
 from h264bsd_tpu_torch.ops import _kernels
 from h264bsd_tpu_torch.ops import deblock as tdeblock
+from h264bsd_tpu_torch.ops import inter as tinter
 from h264bsd_tpu_torch.ops import intra as tintra
-from h264bsd_tpu_torch.ops import reconstruct as treconstruct
 from h264bsd_tpu_torch.ops import transform as ttransform
 from h264bsd_tpu_torch.ops import unpack as tunpack
 from h264bsd_tpu_torch.ops.cuda_deblock_wf import deblock_frame_wavefront
@@ -190,11 +190,11 @@ def test_mb_grid_layout_matches_jax(size, dims):
     mbs = np.random.default_rng(size).integers(
         0, 256, (w * h, size, size), dtype=np.uint8)
     want = jreconstruct.mb_grid_to_plane(jnp.asarray(mbs), w, h)
-    plane = treconstruct.mb_grid_to_plane(torch.from_numpy(mbs), w, h)
+    plane = tinter.mb_grid_to_plane(torch.from_numpy(mbs), w, h)
     _eq(plane, want, "plane")
-    _eq(treconstruct.plane_to_mb_grid(plane, size),
+    _eq(tinter.plane_to_mb_grid(plane, size),
         jreconstruct.plane_to_mb_grid(want, size), "grid")
-    _eq(treconstruct.plane_to_mb_grid(plane, size), mbs, "round trip")
+    _eq(tinter.plane_to_mb_grid(plane, size), mbs, "round trip")
 
 
 # ---------------------------------------------------------------------------

@@ -2,8 +2,9 @@
 package: byte-identical pictures with motion compensation (one to six
 references, long-term references, frame_num gaps, intra MBs in P
 pictures, I_PCM, slice groups, deblocking controls, redundant slices,
-real motion) and on the two partial-loss paths: the spiral concealment
-on the host and the copy from a reference on the device."""
+a redundant slice in place of a lost primary one, real motion) and on
+the two partial-loss paths: the spiral concealment on the host and the
+copy from a reference on the device."""
 
 import pytest
 
@@ -50,6 +51,8 @@ STREAMS = {
     "slice_groups": lambda: streamgen.make_conformance_stream(
         num_slice_groups=2),
     "redundant": lambda: streamgen.make_redundant_stream(False),
+    # the primary slice of MBs 0-7 lost, the redundant slice in its place
+    "redundant_lost": lambda: streamgen.make_redundant_stream(True),
     "motion": lambda: make_motion_stream(6, 4, 4, seed=0),
 }
 
