@@ -8,13 +8,20 @@ MC stage mc_recon also over 50 CUDA-graph replays on fresh planes, a
 race check), decodes all-intra, P (IPPP and real motion), partial-loss
 and SEI streams through decode_stream, Decoder.decode and
 StreamingDecoder (windowable frames replay one CUDA graph per frame
-shape) and checks every picture's checksum, and the SEI messages,
-against the values the JAX package recorded
-(h264bsd_tpu_torch/testdata/reference_checksums.json, written by
-tools/record_torch_port_checksums.py) and that no decode launches the MC
-kernels of the TPU kernels' signature, then times each kernel: its
+shape), N = 1, 2, 4 and 8 1080p streams through MultiStreamDecoder
+(one CUDA graph per round, the N frame bodies side by side on their own
+CUDA streams; on 32-picture streams the aggregate fps of a fresh
+decoder and of one whose round graphs are all captured, the device's
+idle share, parse time and graph captures per N) and small streams
+whose I_PCM and spiral-concealed frames run eagerly after the replay
+(against the same decoder on the CPU), and checks every picture's
+checksum, and the SEI messages, against the values the JAX package
+recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written
+by tools/record_torch_port_checksums.py) and that no decode launches the
+MC kernels of the TPU kernels' signature, then times each kernel: its
 device time from torch.profiler's kernel events, the CUDA-event time of
-the wrapper call, and the plain version's time; and the MC route that
+the wrapper call, and the plain version's time (K8 also at 1x68, 2x68
+and 2x543, and on each frame with every bS 0); and the MC route that
 mc_recon replaced, on the same inputs. Prints one JSON line per
 phase (with the graph captures, replays and eager frames of each decode
 phase), then the kernel table, the card's name and power limit, and as
@@ -28,9 +35,12 @@ from __future__ import annotations
 
 import hashlib
 import json
+import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ProcessPoolExecutor
+from multiprocessing import get_context
 
 import numpy as np
 import torch
@@ -277,6 +287,247 @@ def mc_recon_bound(args):
     return byt, ops
 
 
+# the multistream phase's streams, in order (recorded names)
+MULTISTREAM = ("motion_1080p", "ippp_1080p", "motion_1080p_s1",
+               "ippp_1080p_qp30", "motion_1080p_s2", "stream_ippp_1080p",
+               "motion_1080p_s3", "ippp_1080p_qp22")
+# the timed and profiled passes' streams, the first N: the same makers
+# at LONG_PICTURES pictures each, motion seeds 0-3 between IPPP streams
+# at four QPs
+LONG_PICTURES = 32
+LONG_MIX = tuple(
+    dict(module="motion_stream", maker="make_motion_stream",
+         args=[120, 68, LONG_PICTURES], kwargs=dict(seed=v))
+    if kind == "motion" else
+    dict(maker="make_ippp_stream", args=[120, 68, LONG_PICTURES],
+         kwargs=dict(qp=v))
+    for kind, v in (("motion", 0), ("ippp", 26), ("motion", 1),
+                    ("ippp", 30), ("motion", 2), ("ippp", 34),
+                    ("motion", 3), ("ippp", 22)))
+# the kernels every multistream run launches: K7 on the I pictures, K2 on
+# the motion streams' intra MBs, K1, the MC and residual stages
+MULTISTREAM_KERNELS = ("intra_wf", "intra_list", "deblock_wf", "mc_recon",
+                       "residual_sparse")
+# streams of one geometry (4x4 MBs) whose frames run the eager body on
+# their ring slice after the round's replay: an I_PCM stream (pcm=) and
+# a lost IDR slice (spiral=), beside an IPPP stream and a lost P slice
+# that stay in the graph; recorded names, or (label, maker, args)
+MULTISTREAM_EAGER = ("ippp_4x4", ("pcm_4x4", "make_pcm_stream", (4, 4)),
+                     "loss_idr_slice", "loss_p_slice")
+
+
+def picture_checksum(dec, i, j):
+    """frame_checksum_host of picture j of stream i of a
+    MultiStreamDecoder, read from its ring now."""
+    from h264bsd_tpu_torch.models.decoder import frame_checksum_host
+    return frame_checksum_host(b"".join(
+        p.cpu().numpy().tobytes() for p in dec.picture(i, j)))
+
+
+def multistream_rounds(dec):
+    """Step dec to its end; returns, per stream, the checksums of its
+    pictures, each taken in the round that released it (later rounds
+    may overwrite its slot), and the rounds run."""
+    got = [[] for _ in dec.outputs]
+    rounds = 0
+    while dec.step():
+        rounds += 1
+        for i, sums in enumerate(got):
+            sums += [picture_checksum(dec, i, j) for j in
+                     range(len(sums), len(dec.outputs[i]))]
+    dec.close()
+    return got, rounds
+
+
+def multistream(names, long_streams, recorded_stream, launches):
+    """Decode the recorded streams `names` together with
+    MultiStreamDecoder round by round (step()), every released picture's
+    checksum against the recorded one, with the launch counts set to 0
+    just before and read just after (added to `launches`); then replay
+    each round key's graph 50 times more, every replay leaving the ring
+    byte-equal to the first (a race check). Then decode `long_streams`
+    (LONG_PICTURES each) three times with the pipelined run():
+    - cold: a fresh decoder, its graph captures included (aggregate fps,
+      captures and their host ms);
+    - warm: a decoder of the same streams on the cold one's ring and
+      round graphs, so every round key is captured already (the steady
+      aggregate fps; it must capture nothing);
+    - warm under torch.profiler: the device's busy time and idle share,
+      and the device time of each kernel and of the glue per picture;
+    each stream's last picture equal in all three; and time the host
+    half alone (_parse_round, the streams on worker threads). Returns
+    the record."""
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.ops import _kernels
+    from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from tools.profile_torch_port import busy_us, our_kernels
+
+    n = len(names)
+    entries, streams = zip(*(recorded_stream(x) for x in names))
+    want = [e["checksums"] for e in entries]
+
+    # checksums of every picture, round by round
+    dec = MultiStreamDecoder(list(streams))
+    _kernels.reset_launches()
+    reset_stats()
+    got, rounds = multistream_rounds(dec)
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    stats = dict(STATS)
+    # a race check of the N bodies side by side: a round graph's replay is
+    # idempotent (a body reads reference slots and writes its own), so
+    # every one of 50 more replays of each round key's graph leaves the
+    # ring as its first replay did
+    race_err = 0
+    for graph in dec._graphs.values():
+        graph.graph.replay()
+        first = [p.clone() for p in dec.dpb]
+        for _ in range(50):
+            graph.graph.replay()
+            race_err = max(race_err, max_abs_err(dec.dpb, first))
+    if race_err:
+        raise AssertionError(f"multistream {names}: a round graph's replays "
+                             f"differ (max |err| {race_err})")
+    for k, v in counts.items():
+        launches[k] += v
+    if got != want:
+        raise AssertionError(f"multistream {names}: checksums {got} != "
+                             f"recorded {want}")
+    if not all(counts[k] > 0 for k in MULTISTREAM_KERNELS):
+        raise AssertionError(f"multistream {names}: kernels "
+                             f"{MULTISTREAM_KERNELS} not all launched: "
+                             f"{counts}")
+    if stats["graph_captures"] == 0:
+        raise AssertionError(f"multistream {names}: no round ran as a "
+                             f"graph: {stats}")
+
+    long_streams = list(long_streams[:n])
+    n_pics = n * LONG_PICTURES
+
+    def run(dec):
+        reset_stats()
+        t0 = time.perf_counter()
+        counts = dec.run(pipelined=True)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if counts != [LONG_PICTURES] * n:
+            raise AssertionError(f"multistream {names}: {counts} pictures "
+                                 f"of {LONG_PICTURES}-picture streams")
+        last = [picture_checksum(dec, i, -1) for i in range(n)]
+        dec.close()
+        return wall, dict(STATS), last
+
+    def warm(cold):
+        """A decoder of the long streams on `cold`'s ring and round
+        graphs: its rounds are cold's, so their keys are captured."""
+        dec = MultiStreamDecoder(long_streams)
+        dec.geom, dec.dpb = cold.geom, cold.dpb
+        dec._graphs, dec._pool = cold._graphs, cold._pool
+        dec._side, dec._branches = cold._side, cold._branches
+        return dec
+
+    cold = MultiStreamDecoder(long_streams)
+    cold_wall, cold_stats, cold_last = run(cold)
+    wall, warm_stats, last = run(warm(cold))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        p_wall, p_stats, p_last = run(warm(cold))
+    if not cold_last == last == p_last:
+        raise AssertionError(f"multistream {names}: the long streams' last "
+                             f"pictures differ between runs: {cold_last}, "
+                             f"{last}, {p_last}")
+    if warm_stats["graph_captures"] or p_stats["graph_captures"]:
+        raise AssertionError(f"multistream {names}: a warm run captured: "
+                             f"{warm_stats}, {p_stats}")
+    dev_events = [e for e in prof.events()
+                  if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = busy_us([(e.time_range.start, e.time_range.end)
+                    for e in dev_events]) / 1e3
+    ours = our_kernels()
+    by_kernel = {}
+    for e in dev_events:
+        name = e.name.split("(")[0]
+        name = name if name in ours else "glue"
+        by_kernel[name] = by_kernel.get(name, 0.0) + \
+            (e.time_range.end - e.time_range.start) / 1e3 / n_pics
+
+    dec = MultiStreamDecoder(long_streams)
+    long_rounds = 0
+    t0 = time.perf_counter()
+    while dec._parse_round() is not None:
+        long_rounds += 1
+    parse_ms = 1e3 * (time.perf_counter() - t0)
+    dec.close()
+    return {"streams": list(names), "pictures": sum(map(len, want)),
+            "rounds": rounds, "checksums_ok": True, "launches": counts,
+            "step_graph_captures": stats["graph_captures"],
+            "step_graph_replays": stats["graph_replays"],
+            "step_eager_frames": stats["eager_frames"],
+            "race_replays": 50 * stats["graph_captures"],
+            "long_pictures": n_pics, "long_rounds": long_rounds,
+            "fps_cold": n_pics / cold_wall,
+            "graph_captures": cold_stats["graph_captures"],
+            "capture_ms": cold_stats["capture_ms"],
+            "fps": n_pics / wall,
+            "warm_graph_replays": warm_stats["graph_replays"],
+            "warm_eager_frames": warm_stats["eager_frames"],
+            "profiled_wall_ms": 1e3 * p_wall, "device_busy_ms": busy,
+            "device_idle_share": 1 - busy / (1e3 * p_wall),
+            "device_ms_per_picture": by_kernel,
+            "parse_ms_per_round": parse_ms / long_rounds,
+            "parse_ms_per_stream_picture": parse_ms / n_pics,
+            "host_cpus": os.cpu_count()}
+
+
+def multistream_eager(recorded_stream, launches):
+    """MULTISTREAM_EAGER through MultiStreamDecoder on the card and on
+    the CPU, round by round: every picture equal in the round that
+    released it, the recorded streams' checksums equal to the recorded
+    ones, and the card's run with eager frames (the pictures run after
+    the replay) as well as a graph. The card run's launch counts are
+    added to `launches`. Returns the record."""
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.ops import _kernels
+    from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from h264bsd_tpu_torch.utils import streamgen
+
+    names, streams, want = [], [], []
+    for s in MULTISTREAM_EAGER:
+        if isinstance(s, str):
+            e, data = recorded_stream(s)
+            names.append(s)
+            streams.append(data)
+            want.append(e["checksums"])
+        else:
+            names.append(s[0])
+            streams.append(getattr(streamgen, s[1])(*s[2]))
+            want.append(None)
+    _kernels.reset_launches()
+    reset_stats()
+    got, rounds = multistream_rounds(MultiStreamDecoder(streams))
+    torch.cuda.synchronize()
+    counts = dict(_kernels.LAUNCHES)
+    stats = dict(STATS)
+    for k, v in counts.items():
+        launches[k] += v
+    cpu, cpu_rounds = multistream_rounds(MultiStreamDecoder(streams,
+                                                            device="cpu"))
+    if (got, rounds) != (cpu, cpu_rounds):
+        raise AssertionError(f"multistream {names}: the card's pictures "
+                             f"{got} != the CPU's {cpu}")
+    for name, sums, rec in zip(names, got, want):
+        if rec is not None and sums != rec:
+            raise AssertionError(f"multistream {name}: checksums {sums} != "
+                                 f"recorded {rec}")
+    if stats["eager_frames"] == 0 or stats["graph_captures"] == 0:
+        raise AssertionError(f"multistream {names}: no eager frame or no "
+                             f"graph: {stats}")
+    return {"streams": names, "pictures": sum(map(len, got)),
+            "rounds": rounds, "checksums_ok": True, **stats,
+            "launches": counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -317,6 +568,12 @@ def main() -> int:
 
     dev = torch.device("cuda")
     smi = nvidia_smi()
+    # the multistream phase's long streams, generated by worker processes
+    # while the kernels build and the phases before it run
+    makers = ProcessPoolExecutor(len(LONG_MIX),
+                                 mp_context=get_context("spawn"))
+    long_streams = [makers.submit(make_recorded_stream, e) for e in LONG_MIX]
+    makers.shutdown(wait=False)
 
     # ---- env: build everything from the checkout's sources
     t0 = time.perf_counter()
@@ -354,7 +611,11 @@ def main() -> int:
               deblock_wavefront_plain,
               kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev),
               dims)
-    for seed, dims in enumerate([(2, 5), (1, 1)]):
+    # K8: one MB, one band of MB rows, a 1x68 column and a 32x1088 strip
+    # (5 bands of 16 rows); the timing phase adds the tallest 2-MB-wide
+    # frame of level 5.1, 2x543 (its plain version takes ~36 s a call)
+    for seed, dims in enumerate([(2, 5), (1, 1), (2, 4), (1, 68), (2, 68),
+                                 (1, 9)]):
         check("deblock_raster", deblock_frame_cuda_from_bs,
               deblock_raster_plain,
               kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev),
@@ -456,6 +717,8 @@ def main() -> int:
             raise AssertionError(f"{name} at {dims}: a graph replay differs "
                                  f"from the plain version (max |err| {err})")
 
+    race("deblock_raster", deblock_frame_cuda_from_bs, deblock_raster_plain,
+         kc.deblock_inputs(kc.deblock_case(8, 2, 68), 2, 68, dev), (2, 68))
     race("deblock_wf", deblock_frame_wavefront_from_bs,
          deblock_wavefront_plain,
          kc.deblock_inputs(kc.deblock_case(9, 120, 68), 120, 68, dev),
@@ -550,7 +813,8 @@ def main() -> int:
         note_per_frame(phase, counts, rec["pictures"])
         emit({"phase": phase, **rec})
     for phase, names, need in [
-            ("decode_small", ("intra_40x23", "lowqp_i", "intra_2x4"),
+            ("decode_small", ("intra_40x23", "lowqp_i", "intra_2x4",
+                              "ippp_2x68"),
              ("intra_list", "deblock_raster")),
             ("decode_small_p",
              ("ippp_4x4", "six_ref_cycle", "frame_num_gap", "longterm",
@@ -606,6 +870,18 @@ def main() -> int:
         raise AssertionError(f"stream_ippp_1080p: no frame replayed a "
                              f"graph: {rec}")
     emit({"phase": "stream_1080p_ippp", **rec})
+
+    # N 1080p streams through MultiStreamDecoder: a motion stream first
+    # (its ring has room for 4 references), then IPPP and motion streams
+    # of other QPs and seeds, 4 to 12 pictures each round by round, and
+    # LONG_PICTURES each timed
+    long_streams = [f.result() for f in long_streams]
+    for n_streams in (1, 2, 4, 8):
+        rec = multistream(MULTISTREAM[:n_streams], long_streams,
+                          recorded_stream, launches)
+        emit({"phase": f"multistream_{n_streams}", **rec})
+    emit({"phase": "multistream_eager",
+          **multistream_eager(recorded_stream, launches)})
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -746,14 +1022,23 @@ def main() -> int:
 
     def time_kernel(name, kernel, plain, args, dims, bound, serial,
                     plain_reps, extra=False, case=None):
-        """serial: the kernel's chain of dependent steps (MBs on the
+        """plain_reps: calls of the plain version timed, or 0 to time the
+        one call the check makes. serial: the kernel's chain of dependent
+        steps (MBs on the
         longest dependency chain for K1, K2 and K7 -- for K1 and K7 the
         anti-diagonals -- in their single launch; MBs walked by K8; 1
         for MC and K9). extra: a row at a second shape, kept out of the
         kernels line; case: what the row's inputs are, where not the
         kernel's usual case."""
         got = kernel(*planes_copy(args), *dims)
-        want = plain(*planes_copy(args), *dims)
+        copies = planes_copy(args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(*copies, *dims)
+        end.record()
+        end.synchronize()
+        check_ms = start.elapsed_time(end)
         err = max_abs_err(got, want)
         errs[name] = max(errs[name], err)
         if err:
@@ -762,7 +1047,8 @@ def main() -> int:
         ms, recorded = device_ms(lambda *a: kernel(*a, *dims), args, 20,
                                  name)
         event_ms = timed_ms(lambda *a: kernel(*a, *dims), args, 20)
-        plain_ms = timed_ms(lambda *a: plain(*a, *dims), args, plain_reps)
+        plain_ms = timed_ms(lambda *a: plain(*a, *dims), args, plain_reps) \
+            if plain_reps else check_ms
         byt, ops = bound
         t_bytes, t_ops = byt / HBM_BYTES_PER_S, ops / ALU_OPS_PER_S
         source, replaces = KERNELS[name]
@@ -826,11 +1112,29 @@ def main() -> int:
                     dims, intra_bound(args, dims, ids),
                     len(list_dependency_levels(ids, args[3], *dims)), 1,
                     extra)
-    dims = (2, 4)
-    args = kc.deblock_inputs(kc.deblock_case(14, *dims), *dims, dev)
-    time_kernel("deblock_raster", deblock_frame_cuda_from_bs,
-                deblock_raster_plain, args, dims,
-                deblock_bound(args, dims), dims[0] * dims[1], 3)
+    # K8 at 2x4 (the earlier row) and on taller frames, which cross bands
+    # of MB rows; beside each row, its device time on the same frame with
+    # every bS 0 (no_edges_ms: staging, barriers and stores, no filter),
+    # the floor of its chain of MBs as this run measures it; held to the
+    # plain version below 1000 MBs (the plain version takes ~36 s at 2x543)
+    for seed, dims, extra, reps in ((14, (2, 4), False, 3),
+                                    (15, (1, 68), True, 1),
+                                    (16, (2, 68), True, 1),
+                                    (17, (2, 543), True, 0)):
+        args = kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev)
+        time_kernel("deblock_raster", deblock_frame_cuda_from_bs,
+                    deblock_raster_plain, args, dims,
+                    deblock_bound(args, dims), dims[0] * dims[1], reps,
+                    extra)
+        no_edges = args[:3] + (torch.zeros_like(args[3]),
+                               torch.zeros_like(args[4])) + args[5:]
+        if dims[0] * dims[1] < 1000:
+            check("deblock_raster", deblock_frame_cuda_from_bs,
+                  deblock_raster_plain, no_edges, dims)
+            checks[-1]["case"] = "no edges"
+        (extra_rows if extra else rows)[-1]["no_edges_ms"] = device_ms(
+            lambda *a: deblock_frame_cuda_from_bs(*a, *dims), no_edges, 20,
+            "deblock_raster")[0]
     # 1080p, 4 reference slots, 6% of the MBs with motion exceptions in
     # all four quads (the share pallas_mc.py:10-14 names)
     dims = (120, 68)
@@ -898,7 +1202,8 @@ def main() -> int:
                                          "cuda_launches_per_call",
                                          "profiled_launches_per_call",
                                          "serial_steps",
-                                         "launches_per_frame", "case")
+                                         "launches_per_frame", "case",
+                                         "no_edges_ms")
                        if k in r}
                       for r in rows + extra_rows],
           "mc_old_route": old_route_row})

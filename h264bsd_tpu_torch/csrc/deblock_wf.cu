@@ -36,9 +36,25 @@
 // barrier separates them from the horizontal edges. An edge whose bS is
 // 0 is skipped before any pel is loaded, and the frame-border edges (bS
 // 0 by construction) are skipped by position too, so no read leaves the
-// planes. K8 runs the same per-MB code on the planes in device memory.
+// planes.
+//
+// K8 takes the frames under 3 MBs wide, whose raster order is one chain
+// of every MB (at width 2, MB (r, 0) waits on (r-1, 1)), so its bound is
+// the chain: nMB x the per-MB filter latency, not the bytes (a 2x543
+// frame's planes and parameters are 0.9 MB, 0.3 us at 3.35 TB/s). Design:
+// one block of RB_THREADS threads. It stages bands of RB_ROWS MB rows in
+// shared memory (pels, bS and thresholds, with cp.async), double buffered:
+// while warps 0 (luma) and 1 (chroma) filter band k with the per-MB code
+// below, every thread's copies of band k+1 are in flight. Before band k
+// is filtered, the 4 luma and 2 chroma rows above it -- band k-1's last
+// rows, which band k's top edges read and change -- are copied into band
+// k's halo rows, and band k-1 is written back without them; they go back
+// as band k's halo. The kernel reads no plane row it has written: a
+// band's own rows are untouched until the band itself is filtered.
 
 #include <cuda_runtime.h>
+
+#include <cuda_pipeline.h>
 
 #include <cstdint>
 
@@ -119,7 +135,7 @@ __device__ __forceinline__ void filter_chroma(uint8_t* q, int d, int bs,
   }
 }
 
-// One MB's rows of bS and thresholds, in device or shared memory.
+// One MB's rows of bS and thresholds, in shared memory.
 struct MbParams {
   const int32_t* bs_left;     // (16)
   const int32_t* bs_top;      // (16)
@@ -131,72 +147,104 @@ struct MbParams {
   const int32_t* c_tc0;
 };
 
-__device__ __forceinline__ MbParams params_in_memory(const DeblockArgs& a,
-                                                     int mb) {
-  return MbParams{a.bs_left + mb * 16, a.bs_top + mb * 16,
-                  a.l_alpha + mb * 3,  a.l_beta + mb * 3,
-                  a.l_tc0 + mb * 9,    a.c_alpha + mb * 3,
-                  a.c_beta + mb * 3,   a.c_tc0 + mb * 9};
+// The threads that filter an MB: luma rows (columns) on threads 0-15, Cb
+// and Cr on threads kChroma..kChroma+7 and kChroma+8..kChroma+15. K1's
+// 32-thread block has them in one warp (kChroma 16), meeting at block
+// barriers. K8 puts chroma on warp 1 (kChroma 32), so the chroma edges
+// run beside the luma ones instead of after them in a diverged warp, and
+// warps 0 and 1 meet at named barrier 1 while the block's other warps go
+// on with their own work.
+template <int kChroma>
+__device__ __forceinline__ void mb_barrier() {
+  if (kChroma == 16) {
+    __syncthreads();
+  } else {
+    asm volatile("bar.sync 1, 64;" ::: "memory");
+  }
 }
 
-// Filter one MB; called by the 32 threads of the block. y points at the
-// MB's top-left luma pel in a plane of row pitch yp, cb and cr at its
-// chroma pels (pitch cp), in device or shared memory; left / top: the MB
-// is on the picture's left / top border, whose edges are skipped.
+// Filter one MB; called by every thread of the warps above. y points at
+// the MB's top-left luma pel in a plane of row pitch yp, cb and cr at its
+// chroma pels (pitch cp), in shared memory; left / top: the MB is on the
+// picture's left / top border, whose edges are skipped. A thread's bS and
+// thresholds for all its edges are loaded together before the first
+// filter, so they cost one shared-memory round trip, not two per edge.
+template <int kChroma = 16>
 __device__ void deblock_mb(const MbParams& p, bool left, bool top,
                            uint8_t* y, int yp, uint8_t* cb, uint8_t* cr,
                            int cp) {
-  const int t = threadIdx.x;
-  // edge class: 0 inner, 1 top MB edge, 2 left MB edge; tc0 by bS-1
-  auto tc_of = [](const int32_t* tc0, int cls, int bs) {
-    return tc0[cls * 3 + clip3(0, 2, bs - 1)];
-  };
+  const int t = threadIdx.x, c = t - kChroma;
+  const bool luma = t < 16, chroma = c >= 0 && c < 16;
+  // the bS of the thread's 4 (luma) or 2 (chroma) edges of each direction
+  int vbs[4] = {0, 0, 0, 0}, hbs[4] = {0, 0, 0, 0};
+  const int32_t *alpha = p.c_alpha, *beta = p.c_beta, *tc0 = p.c_tc0;
+  if (luma) {
+    alpha = p.l_alpha;
+    beta = p.l_beta;
+    tc0 = p.l_tc0;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      vbs[e] = p.bs_left[(t >> 2) * 4 + e];
+      hbs[e] = p.bs_top[e * 4 + (t >> 2)];
+    }
+  } else if (chroma) {
+    const int k = c & 7;
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      vbs[e] = p.bs_left[(k >> 1) * 4 + 2 * e];
+      hbs[e] = p.bs_top[e * 8 + (k >> 1)];
+    }
+  }
+  // thresholds by edge class: 0 inner, 1 top MB edge, 2 left MB edge;
+  // tc0 rows by class, columns by bS-1
+  const int a_in = alpha[0], a_top = alpha[1], a_left = alpha[2];
+  const int b_in = beta[0], b_top = beta[1], b_left = beta[2];
+  int vtc[4], htc[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    vtc[e] = tc0[(e == 0 ? 6 : 0) + clip3(0, 2, vbs[e] - 1)];
+    htc[e] = tc0[(e == 0 ? 3 : 0) + clip3(0, 2, hbs[e] - 1)];
+  }
 
   // vertical edges, left to right; each thread owns one pel row
-  if (t < 16) {
+  if (luma) {
     uint8_t* row = y + t * yp;
+#pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const int bs = p.bs_left[(t >> 2) * 4 + e];
-      if (bs == 0 || (e == 0 && left)) continue;
-      const int cls = e == 0 ? 2 : 0;
-      filter_luma(row + 4 * e, 1, bs, p.l_alpha[cls], p.l_beta[cls],
-                  tc_of(p.l_tc0, cls, bs));
+      if (vbs[e] == 0 || (e == 0 && left)) continue;
+      filter_luma(row + 4 * e, 1, vbs[e], e ? a_in : a_left,
+                  e ? b_in : b_left, vtc[e]);
     }
-  } else {
-    const int k = t & 7;
-    uint8_t* row = (t < 24 ? cb : cr) + k * cp;
+  } else if (chroma) {
+    uint8_t* row = (c < 8 ? cb : cr) + (c & 7) * cp;
+#pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int bs = p.bs_left[(k >> 1) * 4 + 2 * e];
-      if (bs == 0 || (e == 0 && left)) continue;
-      const int cls = e == 0 ? 2 : 0;
-      filter_chroma(row + 4 * e, 1, bs, p.c_alpha[cls], p.c_beta[cls],
-                    tc_of(p.c_tc0, cls, bs));
+      if (vbs[e] == 0 || (e == 0 && left)) continue;
+      filter_chroma(row + 4 * e, 1, vbs[e], e ? a_in : a_left,
+                    e ? b_in : b_left, vtc[e]);
     }
   }
-  __syncthreads();
+  mb_barrier<kChroma>();
 
   // horizontal edges, top to bottom; each thread owns one pel column
-  if (t < 16) {
+  if (luma) {
     uint8_t* col = y + t;
+#pragma unroll
     for (int v = 0; v < 4; ++v) {
-      const int bs = p.bs_top[v * 4 + (t >> 2)];
-      if (bs == 0 || (v == 0 && top)) continue;
-      const int cls = v == 0 ? 1 : 0;
-      filter_luma(col + 4 * v * yp, yp, bs, p.l_alpha[cls], p.l_beta[cls],
-                  tc_of(p.l_tc0, cls, bs));
+      if (hbs[v] == 0 || (v == 0 && top)) continue;
+      filter_luma(col + 4 * v * yp, yp, hbs[v], v ? a_in : a_top,
+                  v ? b_in : b_top, htc[v]);
     }
-  } else {
-    const int k = t & 7;
-    uint8_t* col = (t < 24 ? cb : cr) + k;
+  } else if (chroma) {
+    uint8_t* col = (c < 8 ? cb : cr) + (c & 7);
+#pragma unroll
     for (int v = 0; v < 2; ++v) {
-      const int bs = p.bs_top[v * 8 + (k >> 1)];
-      if (bs == 0 || (v == 0 && top)) continue;
-      const int cls = v == 0 ? 1 : 0;
-      filter_chroma(col + 4 * v * cp, cp, bs, p.c_alpha[cls], p.c_beta[cls],
-                    tc_of(p.c_tc0, cls, bs));
+      if (hbs[v] == 0 || (v == 0 && top)) continue;
+      filter_chroma(col + 4 * v * cp, cp, hbs[v], v ? a_in : a_top,
+                    v ? b_in : b_top, htc[v]);
     }
   }
-  __syncthreads();
+  mb_barrier<kChroma>();
 }
 
 // K1: one block per MB, each taking MB k in raster order from the ticket
@@ -342,16 +390,155 @@ deblock_wf_kernel(DeblockArgs a, int* sync) {
   mb_signal(sync + mb);
 }
 
-// K8: one block walks every MB in raster order, in device memory
-__global__ void __launch_bounds__(32) deblock_raster_kernel(DeblockArgs a) {
-  const int n = a.width_mbs * a.height_mbs;
-  const int W = a.width_mbs * 16, Wc = W / 2;
-  for (int mb = 0; mb < n; ++mb) {
-    const int mx = (mb % a.width_mbs) * 16, my = (mb / a.width_mbs) * 16;
-    const int coff = (my / 2) * Wc + mx / 2;
-    deblock_mb(params_in_memory(a, mb), mx == 0, my == 0,
-               a.y + my * W + mx, W, a.cb + coff, a.cr + coff, Wc);
+// K8: one block; bands of RB_ROWS MB rows staged in shared memory, double
+// buffered (see the header). Shared rows have a pitch 4 bytes wider than
+// the plane's, so the 16 luma rows that warp 0's threads own for the
+// vertical edges fall in 16 different banks (the chroma rows of warp 1
+// likewise); rows move as 4-byte words.
+#define RB_THREADS 128
+#define RB_ROWS 16                     // MB rows per band
+#define RB_MAX_WM 2                    // frames under 3 MBs wide
+#define RB_MBS (RB_ROWS * RB_MAX_WM)
+#define RB_LP (16 * RB_MAX_WM + 4)     // shared row pitches, bytes
+#define RB_CP (8 * RB_MAX_WM + 4)
+#define RB_LROWS (4 + 16 * RB_ROWS)    // 4 halo rows, then the band's
+#define RB_CROWS (2 + 8 * RB_ROWS)
+
+struct RasterBand {
+  uint8_t y[RB_LROWS * RB_LP];
+  uint8_t c[2][RB_CROWS * RB_CP];
+  // bS left and top (16 per MB), luma alpha, beta (3), tc0 (9), chroma
+  // alpha, beta, tc0: each array's rows of the band's MBs, at RB_MBS
+  // strides (prm_offset)
+  int32_t prm[RB_MBS * PRM_COUNT];
+};
+
+// start of parameter array j (DeblockArgs order from bs_left) in a band
+__device__ __forceinline__ int prm_offset(int j) {
+  constexpr int kStart[8] = {0, 16, 32, 35, 38, 47, 50, 53};
+  return kStart[j] * RB_MBS;
+}
+
+// rows x (pitch_g bytes) of a plane in device memory into shared rows of
+// pitch_s, as asynchronous 4-byte copies spread over the block
+__device__ __forceinline__ void rows_to_shared(uint8_t* dst, int pitch_s,
+                                               const uint8_t* src,
+                                               int pitch_g, int rows) {
+  const int wpr = pitch_g >> 2;
+  for (int i = threadIdx.x; i < rows * wpr; i += RB_THREADS) {
+    const int r = i / wpr, w = i - r * wpr;
+    __pipeline_memcpy_async(dst + r * pitch_s + 4 * w,
+                            src + r * pitch_g + 4 * w, 4);
   }
+}
+
+// shared rows of pitch_s back into the plane, 4-byte words
+__device__ __forceinline__ void rows_to_global(uint8_t* dst, int pitch_g,
+                                               const uint8_t* src,
+                                               int pitch_s, int rows) {
+  const int wpr = pitch_g >> 2;
+  for (int i = threadIdx.x; i < rows * wpr; i += RB_THREADS) {
+    const int r = i / wpr, w = i - r * wpr;
+    *reinterpret_cast<uint32_t*>(dst + r * pitch_g + 4 * w) =
+        *reinterpret_cast<const uint32_t*>(src + r * pitch_s + 4 * w);
+  }
+}
+
+__global__ void __launch_bounds__(RB_THREADS)
+deblock_raster_kernel(DeblockArgs a) {
+  __shared__ __align__(16) RasterBand band[2];
+  const int wm = a.width_mbs, hm = a.height_mbs;
+  const int W = 16 * wm, Wc = 8 * wm, LP = W + 4, CP = Wc + 4;
+  const int n_bands = (hm + RB_ROWS - 1) / RB_ROWS;
+  uint8_t* const cplane[2] = {a.cb, a.cr};
+  const int32_t* const params[8] = {a.bs_left, a.bs_top, a.l_alpha, a.l_beta,
+                                    a.l_tc0,   a.c_alpha, a.c_beta, a.c_tc0};
+  constexpr int kWords[8] = {16, 16, 3, 3, 9, 3, 3, 9};  // per MB
+  auto rows_of = [&](int k) { return min(RB_ROWS, hm - k * RB_ROWS); };
+
+  // band k's own pels and parameters into band[k & 1]: no MB before the
+  // band has changed them
+  auto load = [&](int k) {
+    RasterBand& b = band[k & 1];
+    const int r0 = k * RB_ROWS, rows = rows_of(k), mb0 = r0 * wm;
+    rows_to_shared(b.y + 4 * LP, LP, a.y + 16 * r0 * W, W, 16 * rows);
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      rows_to_shared(b.c[p] + 2 * CP, CP, cplane[p] + 8 * r0 * Wc, Wc,
+                     8 * rows);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = rows * wm * kWords[j];
+      const int32_t* src = params[j] + mb0 * kWords[j];
+      for (int i = threadIdx.x; i < n; i += RB_THREADS) {
+        __pipeline_memcpy_async(b.prm + prm_offset(j) + i, src + i, 4);
+      }
+    }
+    __pipeline_commit();
+  };
+  // band k written back from its halo rows (band k-1's last rows, final
+  // once band k is filtered) on; without its own last 4 luma and 2
+  // chroma rows unless it is the last band
+  auto store = [&](int k, bool last) {
+    const RasterBand& b = band[k & 1];
+    const int r0 = k * RB_ROWS, rows = rows_of(k);
+    const int ly = k > 0 ? 0 : 4, lc = k > 0 ? 0 : 2;
+    rows_to_global(a.y + (16 * r0 - 4 + ly) * W, W, b.y + ly * LP, LP,
+                   16 * rows + 4 - ly - (last ? 0 : 4));
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      rows_to_global(cplane[p] + (8 * r0 - 2 + lc) * Wc, Wc,
+                     b.c[p] + lc * CP, CP, 8 * rows + 2 - lc - (last ? 0 : 2));
+    }
+  };
+
+  load(0);
+  __pipeline_wait_prior(0);
+  __syncthreads();
+  for (int k = 0; k < n_bands; ++k) {
+    RasterBand& b = band[k & 1];
+    if (k > 0) {
+      // band k-1's last rows, filtered, into band k's halo; then band k-1
+      // goes back, and its buffer is free for band k+1
+      const RasterBand& prev = band[(k - 1) & 1];
+      const int lr = 16 * rows_of(k - 1), cr = 8 * rows_of(k - 1);
+      for (int i = threadIdx.x; i < LP; i += RB_THREADS) {
+        reinterpret_cast<uint32_t*>(b.y)[i] =
+            reinterpret_cast<const uint32_t*>(prev.y + lr * LP)[i];
+      }
+      for (int i = threadIdx.x; i < CP; i += RB_THREADS) {
+        const int p = i >= CP / 2, w = i - p * (CP / 2);
+        reinterpret_cast<uint32_t*>(b.c[p])[w] =
+            reinterpret_cast<const uint32_t*>(prev.c[p] + cr * CP)[w];
+      }
+      store(k - 1, false);
+      __syncthreads();
+    }
+    if (k + 1 < n_bands) load(k + 1);
+    if (threadIdx.x < 64) {
+      const int r0 = k * RB_ROWS, n = rows_of(k) * wm;
+      for (int i = 0; i < n; ++i) {
+        const int rr = i / wm, c = i - rr * wm;
+        const int32_t* q = b.prm;
+        const MbParams par{q + prm_offset(0) + 16 * i,
+                           q + prm_offset(1) + 16 * i,
+                           q + prm_offset(2) + 3 * i,
+                           q + prm_offset(3) + 3 * i,
+                           q + prm_offset(4) + 9 * i,
+                           q + prm_offset(5) + 3 * i,
+                           q + prm_offset(6) + 3 * i,
+                           q + prm_offset(7) + 9 * i};
+        deblock_mb<32>(par, c == 0, r0 + rr == 0,
+                         b.y + (4 + 16 * rr) * LP + 16 * c, LP,
+                         b.c[0] + (2 + 8 * rr) * CP + 8 * c,
+                         b.c[1] + (2 + 8 * rr) * CP + 8 * c, CP);
+      }
+    }
+    __pipeline_wait_prior(0);
+    __syncthreads();
+  }
+  store(n_bands - 1, true);
 }
 
 static DeblockArgs make_args(void* y, void* cb, void* cr, const void* bs_left,
@@ -389,6 +576,9 @@ extern "C" int h264_deblock_raster(
   const DeblockArgs a = make_args(y, cb, cr, bs_left, bs_top, l_alpha, l_beta,
                                   l_tc0, c_alpha, c_beta, c_tc0, width_mbs,
                                   height_mbs);
-  deblock_raster_kernel<<<1, 32, 0, (cudaStream_t)stream>>>(a);
+  if (width_mbs < 1 || width_mbs > RB_MAX_WM || height_mbs < 1) {
+    return (int)cudaErrorInvalidValue;
+  }
+  deblock_raster_kernel<<<1, RB_THREADS, 0, (cudaStream_t)stream>>>(a);
   return (int)cudaGetLastError();
 }

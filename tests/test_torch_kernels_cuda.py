@@ -80,7 +80,13 @@ def test_deblock_wavefront_kernel(dev, seed, dims):
     assert _kernels.LAUNCHES["deblock_wf"] == before + 1
 
 
-@pytest.mark.parametrize("seed,dims", [(4, (2, 5)), (5, (1, 1))])
+# one MB, one band, a 32x1088 strip and a 1x68 column (5 bands of 16 MB
+# rows), the tallest 2-MB-wide frame of level 5.1 (34 bands)
+@pytest.mark.parametrize("seed,dims", [(4, (2, 5)), (5, (1, 1)), (6, (2, 4)),
+                                       (7, (2, 4)), (8, (1, 68)),
+                                       (9, (1, 68)), (10, (2, 68)),
+                                       (11, (2, 68)), (12, (2, 543)),
+                                       (13, (2, 543))])
 def test_deblock_raster_kernel(dev, seed, dims):
     args = deblock_inputs(deblock_case(seed, *dims), *dims, dev)
     before = _kernels.LAUNCHES["deblock_raster"]
@@ -157,6 +163,14 @@ def test_deblock_wavefront_kernel_graph_replays(dev):
     args = deblock_inputs(deblock_case(13, *dims), *dims, dev)
     want = deblock_wavefront_plain(*_clone_planes(args), *dims)
     _replays_equal(lambda *a: deblock_frame_wavefront_from_bs(*a, *dims),
+                   args, want, 50)
+
+
+def test_deblock_raster_kernel_graph_replays(dev):
+    dims = (2, 543)
+    args = deblock_inputs(deblock_case(14, *dims), *dims, dev)
+    want = deblock_raster_plain(*_clone_planes(args), *dims)
+    _replays_equal(lambda *a: deblock_frame_cuda_from_bs(*a, *dims),
                    args, want, 50)
 
 
@@ -469,3 +483,48 @@ def test_graph_replay_matches_eager_body(dev):
     assert frames == 8
     assert STATS["graph_replays"] > 0
     assert STATS["graph_captures"] + STATS["graph_replays"] == frames
+
+
+def test_multistream_graph_replays_match_the_eager_rounds(dev):
+    """Three motion streams, an I_PCM stream and a lost IDR slice (the
+    spiral concealment), all 4x4 MBs, through MultiStreamDecoder on the
+    card (one graph per round key, the frame bodies on their own CUDA
+    streams; the I_PCM and spiral frames run eagerly on their ring slice
+    after the replay) give, round by round, the pictures of the same
+    decoder's eager rounds on the CPU."""
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from h264bsd_tpu_torch.utils import streamgen
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+    from h264bsd_tpu_torch.utils.recorded import drop_nal
+
+    streams = [make_motion_stream(4, 4, 8, seed=s) for s in (3, 4, 5)] + [
+        streamgen.make_pcm_stream(4, 4),
+        drop_nal(streamgen.make_conformance_stream(slices_per_frame=2), 3)]
+    decs = [MultiStreamDecoder(streams, device=d) for d in (dev, "cpu")]
+    card = dict.fromkeys(STATS, 0)
+    rounds = 0
+    try:
+        while True:
+            reset_stats()
+            ready = decs[0].step()
+            for k, v in STATS.items():
+                card[k] += v
+            assert decs[1].step() == ready
+            if not ready:
+                break
+            rounds += 1
+            for i in range(len(streams)):
+                assert len(decs[0].outputs[i]) == len(decs[1].outputs[i])
+                for j in range(len(decs[0].outputs[i])):
+                    for g, w, name in zip(decs[0].picture(i, j),
+                                          decs[1].picture(i, j),
+                                          ("y", "cb", "cr")):
+                        assert torch.equal(g.cpu(), w), \
+                            f"round {rounds} stream {i} picture {j} {name}"
+    finally:
+        for d in decs:
+            d.close()
+    assert rounds == 8
+    assert card["graph_replays"] > 0
+    assert card["eager_frames"] > 0

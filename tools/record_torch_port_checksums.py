@@ -101,6 +101,19 @@ STREAMS = {
                       args=[20, 12, 6], sei=True),
     # 1080p IPPP fed to StreamingDecoder in chunks
     "stream_ippp_1080p": dict(maker="make_ippp_stream", args=[120, 68, 12]),
+    # 2 MBs wide and 68 tall (a 32x1088 strip): the raster deblock kernel
+    # across bands of MB rows
+    "ippp_2x68": dict(maker="make_ippp_stream", args=[2, 68, 4]),
+    # further 1080p streams of the multistream phase (with motion_1080p,
+    # ippp_1080p and stream_ippp_1080p): other motion seeds and IPPP QPs
+    **{f"motion_1080p_s{s}": dict(module="motion_stream",
+                                  maker="make_motion_stream",
+                                  args=[120, 68, 4], kwargs=dict(seed=s))
+       for s in (1, 2, 3)},
+    "ippp_1080p_qp30": dict(maker="make_ippp_stream", args=[120, 68, 6],
+                            kwargs=dict(qp=30)),
+    "ippp_1080p_qp22": dict(maker="make_ippp_stream", args=[120, 68, 5],
+                            kwargs=dict(qp=22)),
 }
 
 
