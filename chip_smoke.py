@@ -3,10 +3,13 @@
 
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
-PyTorch version on the card (the dependency-driven K1, K2 and K7 and the
-MC stage mc_recon also over 50 CUDA-graph replays on fresh planes, a
-race check), decodes all-intra, P (IPPP and real motion), partial-loss
-and SEI streams through decode_stream, Decoder.decode and
+PyTorch version on the card (K1 and K2 also on the row-sharded path's
+extended stripes, K9 on the dense row-sharded step's stripe blocks; the
+dependency-driven K1, K2 and K7 and the MC stage mc_recon, and its
+stripe kernel at MB-row offset 34 of 1080p, also over 50 CUDA-graph
+replays on fresh planes, a race check), decodes all-intra,
+P (IPPP and real motion), partial-loss and SEI streams through
+decode_stream, Decoder.decode and
 StreamingDecoder (windowable frames replay one CUDA graph per frame
 shape), N = 1, 2, 4 and 8 1080p streams through MultiStreamDecoder
 (one CUDA graph per round, the N frame bodies side by side on their own
@@ -14,7 +17,11 @@ CUDA streams; on 32-picture streams the aggregate fps of a fresh
 decoder and of one whose round graphs are all captured, the device's
 idle share, parse time and graph captures per N) and small streams
 whose I_PCM and spiral-concealed frames run eagerly after the replay
-(against the same decoder on the CPU), and checks every picture's
+(against the same decoder on the CPU), then the multi-device decoders
+on device lists that repeat the one card (GOP-parallel decode with 1
+and 2 workers, the row-sharded blob and dense steps at 2 and 4 stripes,
+framepipe at 2 and 4 replicas and its eviction, MultiStreamDecoder
+sharded over 2 positions), and checks every picture's
 checksum, and the SEI messages, against the values the JAX package
 recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written
 by tools/record_torch_port_checksums.py) and that no decode launches the
@@ -94,9 +101,13 @@ KERNELS = {
                    "h264bsd_tpu/ops/pallas_mc.py:174 and :226"),
     "mc_exception": ("h264bsd_tpu_torch/csrc/mc.cu",
                      "h264bsd_tpu/ops/pallas_mc.py:284 and :306"),
-    # K3-K6 with the inter combine, the main path's MC stage
+    # K3-K6 with the inter combine, the main path's MC stage, and the
+    # same on a stripe at an MB-row offset (the row-sharded path)
     "mc_recon": ("h264bsd_tpu_torch/csrc/mc.cu",
                  "h264bsd_tpu/ops/pallas_mc.py:174, :226, :284 and :306"),
+    "mc_recon_stripe": ("h264bsd_tpu_torch/csrc/mc.cu",
+                        "h264bsd_tpu/ops/pallas_mc.py:174, :226, :284 and "
+                        ":306 (mb_row_offset :411)"),
     # K9 with the JAX package's signature, and K9's body as the main
     # path's residual stage
     "idct_blocks": ("h264bsd_tpu_torch/csrc/transform.cu",
@@ -119,12 +130,16 @@ PER_FRAME_PHASE = {"deblock_wf": "decode_720p_all_i",
                    "mc_uniform": "decode_1080p_motion",
                    "mc_exception": "decode_1080p_motion",
                    "mc_recon": "decode_1080p_motion",
-                   "idct_blocks": "decode_1080p_motion",
+                   "mc_recon_stripe": "rowshard",
+                   "idct_blocks": "rowshard",
                    "residual_sparse": "decode_1080p_motion"}
 # the main path runs K9's body through residual_sparse and K3-K6 through
-# mc_recon; idct_blocks, mc_uniform and mc_exception are those kernels
-# with the TPU kernels' own signatures, which no decode calls
-OFF_PATH = ("idct_blocks", "mc_uniform", "mc_exception")
+# mc_recon; mc_uniform and mc_exception are those kernels with the TPU
+# kernels' own signatures, which no decode calls. idct_blocks, K9 with
+# its own signature, runs on the row-sharded dense step, and
+# mc_recon_stripe on every row-sharded stripe (the rowshard phase gives
+# their launches per frame)
+OFF_PATH = ("mc_uniform", "mc_exception")
 
 
 def emit(record):
@@ -379,7 +394,7 @@ def multistream(names, long_streams, recorded_stream, launches):
     # every one of 50 more replays of each round key's graph leaves the
     # ring as its first replay did
     race_err = 0
-    for graph in dec._graphs.values():
+    for graph in dec._shards[0].graphs.values():
         graph.graph.replay()
         first = [p.clone() for p in dec.dpb]
         for _ in range(50):
@@ -421,9 +436,7 @@ def multistream(names, long_streams, recorded_stream, launches):
         """A decoder of the long streams on `cold`'s ring and round
         graphs: its rounds are cold's, so their keys are captured."""
         dec = MultiStreamDecoder(long_streams)
-        dec.geom, dec.dpb = cold.geom, cold.dpb
-        dec._graphs, dec._pool = cold._graphs, cold._pool
-        dec._side, dec._branches = cold._side, cold._branches
+        dec.geom, dec._shards = cold.geom, cold._shards
         return dec
 
     cold = MultiStreamDecoder(long_streams)
@@ -528,6 +541,313 @@ def multistream_eager(recorded_stream, launches):
             "launches": counts}
 
 
+# ---- the multi-device decoders (parallel/gop.py, rowshard.py,
+# framepipe.py, multistream.py's mesh=) on device lists that repeat the
+# one card: every stripe, halo, hand-off and replica path runs, no
+# multi-GPU scaling is measured
+
+# the card the device lists repeat
+CARD = "cuda:0"
+# the gop phase's stream: four closed GOPs, the recorded 1080p motion
+# streams one after another
+GOP_PARTS = ("motion_1080p", "motion_1080p_s1", "motion_1080p_s2",
+             "motion_1080p_s3")
+# the kernels each decoder's run must launch
+GOP_KERNELS = ("intra_list", "deblock_wf", "mc_recon", "residual_sparse")
+ROWSHARD_KERNELS = {"blob": ("intra_list", "deblock_wf", "mc_recon_stripe",
+                             "residual_sparse"),
+                    "dense": ("intra_list", "deblock_wf", "mc_recon_stripe",
+                              "idct_blocks")}
+
+
+def counted(fn):
+    """Run fn() with the launch counts and graph stats set to 0 just
+    before; returns (its result, wall seconds ending in a synchronize,
+    launch counts, graph stats)."""
+    from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.ops import _kernels
+
+    _kernels.reset_launches()
+    reset_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, dict(_kernels.LAUNCHES), dict(STATS)
+
+
+def need_launched(phase, counts, kernels):
+    missing = [k for k in kernels if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"{phase}: kernels {missing} never launched: "
+                             f"{counts}")
+
+
+def checksums_of(pics):
+    from h264bsd_tpu_torch.models.decoder import frame_checksum_host
+    return [frame_checksum_host(p.yuv_bytes()) for p in pics]
+
+
+def gop_phase(recorded_stream, launches):
+    """decode_stream_gop_parallel on GOP_PARTS concatenated, with 1 and 2
+    workers on ["cuda:0"] (each worker's decoder keeps its ring and graphs
+    across its segments); the pictures' checksums against the recorded
+    lists concatenated, the fps (pictures collected, then the checksums)
+    beside decode_stream's on the same stream, captures and launches."""
+    from h264bsd_tpu_torch.models.decoder import decode_stream
+    from h264bsd_tpu_torch.parallel.gop import (decode_stream_gop_parallel,
+                                                split_gops)
+
+    entries, parts = zip(*(recorded_stream(n) for n in GOP_PARTS))
+    data = b"".join(parts)
+    want = [c for e in entries for c in e["checksums"]]
+    if len(split_gops(data)) != len(GOP_PARTS):
+        raise AssertionError("gop: the stream does not split into "
+                             f"{len(GOP_PARTS)} GOPs")
+    rec = {"streams": list(GOP_PARTS), "pictures": len(want),
+           "checksums_ok": True}
+    for workers in (1, 2):
+        pics, wall, counts, stats = counted(lambda: list(
+            decode_stream_gop_parallel(data, devices=[CARD],
+                                       threads=workers)))
+        if checksums_of(pics) != want:
+            raise AssertionError(f"gop, {workers} workers: checksums differ "
+                                 "from the recorded ones")
+        need_launched(f"gop, {workers} workers", counts, GOP_KERNELS)
+        for k, v in counts.items():
+            launches[k] += v
+        rec[f"workers_{workers}"] = {
+            "fps": len(pics) / wall, "wall_ms": 1e3 * wall, **stats,
+            "launches_per_picture": {k: v / len(pics)
+                                     for k, v in counts.items() if v}}
+    pics, wall, _, stats = counted(lambda: list(decode_stream(data,
+                                                              device=CARD)))
+    if checksums_of(pics) != want:
+        raise AssertionError("gop: decode_stream's checksums differ")
+    rec["decode_stream"] = {"fps": len(pics) / wall, **stats}
+    return rec
+
+
+def rowshard_decode(data, mesh, kind, max_frames=None):
+    """Decode `data` frame by frame through the row-sharded step (blob or
+    dense) on `mesh`'s "row" axis; returns the pictures' checksums in
+    display order, read from position 0's ring after checking that every
+    replica holds the same picture, the frames decoded, and the seconds
+    of the step calls (from the call to the end of its device work). With
+    max_frames, the pictures of the first max_frames frames (the
+    front-end flushed after them)."""
+    from h264bsd_tpu_torch.frontend import binding as fe
+    from h264bsd_tpu_torch.models.decoder import (Decoder,
+                                                  frame_checksum_host,
+                                                  pin_caps_for_stream)
+    from h264bsd_tpu_torch.models.state import new_ring
+    from h264bsd_tpu_torch.ops.reconstruct import build_pcm_tensors
+    from h264bsd_tpu_torch.parallel.rowshard import (
+        make_row_sharded_blob_step, make_row_sharded_step)
+
+    n_row = mesh.shape["row"]
+    dec = Decoder(caps_pin=pin_caps_for_stream(data), device="cpu")
+    dpb, steps, sums, pos, frames = None, {}, [], 0, 0
+
+    step_s = 0.0
+
+    def take_outputs():
+        while (o := dec._fe.next_output()) is not None:
+            pics = [b"".join(p[k][o["slot"]].cpu().numpy().tobytes()
+                             for p in dpb) for k in range(n_row)]
+            if any(x != pics[0] for x in pics):
+                raise AssertionError("rowshard: the replicas' rings differ")
+            sums.append(frame_checksum_host(pics[0]))
+
+    while pos < len(data):
+        status, read = dec._fe.decode(data, len(sums), pos)
+        pos += read
+        if status == fe.HDRS_RDY:
+            dpb = None
+        elif status == fe.PIC_RDY:
+            prep = dec._prepare()
+            g, n = prep["geom"], prep["n_mbs"]
+            w, h = prep["w_mbs"], prep["h_mbs"]
+            if dpb is None:
+                dpb = tuple(mesh.replicate(p) for p in new_ring(
+                    g["dpb_slots"], g["height_mbs"], g["width_mbs"],
+                    mesh.devices[0]))
+            pcm = build_pcm_tensors(n, *prep["ipcm"])
+            slot = prep["info"]["slot"]
+            if kind == "blob":
+                if prep["caps"] not in steps:
+                    steps[prep["caps"]] = make_row_sharded_blob_step(
+                        mesh, "row", w, h, prep["caps"])
+                pcm_t = tuple(torch.from_numpy(p) for p in pcm) \
+                    if len(prep["ipcm"][0]) else (None,) * 3
+                t0 = time.perf_counter()
+                steps[prep["caps"]](prep["blob"], *pcm_t, *dpb, slot)
+            else:
+                t = dec._fe.tensors(n)
+                t["pcm_y"], t["pcm_cb"], t["pcm_cr"] = pcm
+                t0 = time.perf_counter()
+                make_row_sharded_step(mesh, "row", w, h)(t, *dpb, slot)
+            torch.cuda.synchronize()
+            step_s += time.perf_counter() - t0
+            frames += 1
+            if max_frames is not None and frames == max_frames:
+                dec._fe.flush_buffer()
+                take_outputs()
+                break
+            take_outputs()
+        elif status >= fe.ERROR and read == 0:
+            break
+    dec.close()
+    return sums, frames, step_s
+
+
+def rowshard_phase(recorded_stream, launches, per_frame):
+    """ippp_1080p and motion_1080p through the blob step, and their first
+    two frames through the dense step (K9's idct_blocks), at 2 and 4
+    stripes of ["cuda:0"]: checksums against the recorded ones, ms per
+    frame (eager, stripe after stripe), launches per frame."""
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+
+    rec = {}
+    dense_counts, dense_frames = {k: 0 for k in KERNELS}, 0
+    stripe_launches, all_frames = 0, 0
+    for name in ("ippp_1080p", "motion_1080p"):
+        e, data = recorded_stream(name)
+        for kind, max_frames in (("blob", None), ("dense", 2)):
+            for n_row in (2, 4):
+                mesh = Mesh([CARD] * n_row, ("row",))
+                (sums, frames, step_s), _, counts, _ = counted(
+                    lambda: rowshard_decode(data, mesh, kind, max_frames))
+                if not sums or sums != e["checksums"][:len(sums)] or (
+                        max_frames is None and sums != e["checksums"]):
+                    raise AssertionError(
+                        f"rowshard {name} {kind} {n_row}: checksums {sums} "
+                        f"!= recorded {e['checksums']}")
+                need_launched(f"rowshard {name} {kind} {n_row}", counts,
+                              ROWSHARD_KERNELS[kind])
+                for k, v in counts.items():
+                    launches[k] += v
+                stripe_launches += counts["mc_recon_stripe"]
+                all_frames += frames
+                if kind == "dense":
+                    dense_frames += frames
+                    for k, v in counts.items():
+                        dense_counts[k] += v
+                rec[f"{name}_{kind}_{n_row}"] = {
+                    "frames": frames, "pictures": len(sums),
+                    "ms_per_frame": 1e3 * step_s / frames,
+                    "launches_per_frame": {k: v / frames
+                                           for k, v in counts.items() if v}}
+    per_frame["idct_blocks"] = dense_counts["idct_blocks"] / dense_frames
+    per_frame["mc_recon_stripe"] = stripe_launches / all_frames
+    return {"checksums_ok": True, **rec}
+
+
+def framepipe_phase(recorded_stream, long_ippp, launches):
+    """decode_stream_framepipe at 2 and 4 replicas of ["cuda:0"]: the
+    recorded ippp_1080p's checksums; on a 32-picture IPPP stream its fps
+    (a fresh run, its captures included) beside decode_stream's, every
+    picture equal, and the hand-off's device ms per frame; and a small
+    stream whose first slice is corrupted (the eviction) against the
+    decoder on the CPU."""
+    from h264bsd_tpu_torch.models.decoder import decode_stream
+    from h264bsd_tpu_torch.parallel.framepipe import (
+        _handoff, decode_stream_framepipe)
+    from h264bsd_tpu_torch.parallel.gop import _nal_positions
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+    from h264bsd_tpu_torch.utils import streamgen
+
+    e, data = recorded_stream("ippp_1080p")
+    ref_pics, ref_wall, _, ref_stats = counted(
+        lambda: list(decode_stream(long_ippp, device=CARD)))
+    ref_sums = checksums_of(ref_pics)
+    del ref_pics
+    rec = {"decode_stream_fps": len(ref_sums) / ref_wall,
+           "decode_stream_captures": ref_stats["graph_captures"]}
+    for n in (2, 4):
+        mesh = Mesh([CARD] * n, ("pipe",))
+        pics, _, counts, _ = counted(
+            lambda: list(decode_stream_framepipe(data, mesh, "pipe")))
+        if checksums_of(pics) != e["checksums"]:
+            raise AssertionError(f"framepipe {n}: checksums differ from "
+                                 "the recorded ones")
+        need_launched(f"framepipe {n}", counts, ("mc_recon", "deblock_wf",
+                                                 "residual_sparse"))
+        for k, v in counts.items():
+            launches[k] += v
+        pics, wall, counts, stats = counted(
+            lambda: list(decode_stream_framepipe(long_ippp, mesh, "pipe")))
+        if checksums_of(pics) != ref_sums:
+            raise AssertionError(f"framepipe {n}: the 32-picture stream "
+                                 "differs from decode_stream's")
+        # the hand-off of one 1080p slot into the n-1 other replicas
+        replicas = tuple([torch.zeros((2,) + tuple(p.shape),
+                                      dtype=torch.uint8, device=CARD)
+                          for _ in range(n)] for p in pics[0].planes)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for k in range(20):
+            _handoff(*replicas, k % n, 1)
+        end.record()
+        end.synchronize()
+        rec[f"replicas_{n}"] = {
+            "pictures": len(pics), "fps": len(pics) / wall, **stats,
+            "handoff_ms_per_frame": start.elapsed_time(end) / 20,
+            "launches_per_picture": {k: v / len(pics)
+                                     for k, v in counts.items() if v}}
+        del pics
+    # eviction: a partial loss without a reference on the owner, repaired
+    # on the host and handed to every replica
+    bad = bytearray(streamgen.make_ippp_stream(4, 4, 6))
+    nals = _nal_positions(bytes(bad))
+    first = next(k for k, x in enumerate(nals) if x[2] in (1, 5))
+    at = nals[first][0]
+    bad[at + int((nals[first + 1][1] - at) * 0.8)] ^= 0xFF
+    bad = bytes(bad)
+    want = [p.yuv_bytes() for p in decode_stream(bad, device="cpu")]
+    got, _, _, stats = counted(lambda: [p.yuv_bytes() for p in
+                                        decode_stream_framepipe(
+                                            bad, Mesh([CARD] * 2,
+                                                      ("pipe",)), "pipe")])
+    if got != want or stats["eager_frames"] == 0:
+        raise AssertionError(f"framepipe eviction: the card's pictures "
+                             f"differ from the CPU's, or nothing was "
+                             f"evicted: {stats}")
+    rec["eviction"] = {"pictures": len(got), **stats}
+    return {"checksums_ok": True, **rec}
+
+
+def multistream_mesh_phase(recorded_stream, long_streams, launches):
+    """MultiStreamDecoder on N = 4 recorded 1080p streams sharded over 2
+    positions of ["cuda:0"] (each position's block of two streams with
+    its own ring and round graph), round by round: every picture's
+    checksum against the recorded one; then the 32-picture streams, a
+    fresh decoder (aggregate fps, captures included)."""
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+    from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
+
+    names = MULTISTREAM[:4]
+    mesh = Mesh([CARD] * 2, ("stream",))
+    entries, streams = zip(*(recorded_stream(x) for x in names))
+    (got, rounds), _, counts, stats = counted(lambda: multistream_rounds(
+        MultiStreamDecoder(list(streams), mesh=mesh)))
+    if got != [e["checksums"] for e in entries]:
+        raise AssertionError(f"multistream_mesh: checksums {got} differ "
+                             "from the recorded ones")
+    need_launched("multistream_mesh", counts, MULTISTREAM_KERNELS)
+    for k, v in counts.items():
+        launches[k] += v
+    dec = MultiStreamDecoder(list(long_streams[:4]), mesh=mesh)
+    n_pics, wall, _, long_stats = counted(lambda: sum(dec.run()))
+    dec.close()
+    return {"streams": list(names), "positions": 2, "rounds": rounds,
+            "checksums_ok": True, **stats, "launches": counts,
+            "long_pictures": n_pics, "fps_cold": n_pics / wall,
+            "long_graph_captures": long_stats["graph_captures"],
+            "long_capture_ms": long_stats["capture_ms"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -537,6 +857,7 @@ def main() -> int:
     from h264bsd_tpu_torch.models.decoder import (Decoder, decode_stream,
                                                   frame_checksum_host)
     from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.models.state import tensor_from_numpy
     from h264bsd_tpu_torch.models.stream import StreamingDecoder
     from h264bsd_tpu_torch.ops import _kernels
     from h264bsd_tpu_torch.ops.cuda_deblock import (
@@ -558,8 +879,9 @@ def main() -> int:
         idct_blocks, residual_planes_sparse_cuda)
     from h264bsd_tpu_torch.ops.deblock import anti_diagonals
     from h264bsd_tpu_torch.ops.inter import mb_grid_to_plane
-    from h264bsd_tpu_torch.ops.intra import intra_pass_list
+    from h264bsd_tpu_torch.ops.intra import intra_pass, intra_pass_list
     from h264bsd_tpu_torch.ops.transform import (idct_blocks_plain,
+                                                 residual_blocks,
                                                  residual_planes_sparse)
     from h264bsd_tpu_torch.ops.unpack import (blob_words, unpack_blob,
                                               unpack_meta)
@@ -611,6 +933,16 @@ def main() -> int:
               deblock_wavefront_plain,
               kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev),
               dims)
+    # K1 on the row-sharded path's extended stripes of a 1080p frame: the
+    # top stripe of 2 (34 MB rows + the dummy row), the second of 2, the
+    # last of 4 (17 + 1), with the stripe's bS and halo rows
+    stripe_case = kc.deblock_case(18, 120, 68)
+    for first, n_rows in ((0, 34), (34, 34), (51, 17)):
+        check("deblock_wf", deblock_frame_wavefront_from_bs,
+              deblock_wavefront_plain,
+              kc.deblock_stripe_inputs(stripe_case, 120, first, n_rows, dev),
+              (120, n_rows + 1))
+        checks[-1]["case"] = f"stripe at MB row {first}"
     # K8: one MB, one band of MB rows, a 1x68 column and a 32x1088 strip
     # (5 bands of 16 rows); the timing phase adds the tallest 2-MB-wide
     # frame of level 5.1, 2x543 (its plain version takes ~36 s a call)
@@ -656,6 +988,16 @@ def main() -> int:
           lambda *a: plain_intra_list(*a[:-1], ids=ids),
           kc.intra_inputs(all_c, dev), (120, 68))
     checks[-1]["case"] = "all_c"
+    # K2 as the row-sharded path runs it (every MB in raster order) on the
+    # halo-extended stripes of the same frame: the top stripe of 4, the
+    # second of 2 and the last of 4, the halo row read by above-right
+    # blocks too
+    for first, n_rows in ((0, 17), (34, 34), (51, 17)):
+        check("intra_list", intra_pass_cuda,
+              lambda *a: intra_pass(*a[:-1]),
+              kc.intra_stripe_inputs(all_c, 120, first, n_rows, dev),
+              (120, n_rows + 1))
+        checks[-1]["case"] = f"all_c, stripe at MB row {first}"
     # MC at the decode tests' size, a mid size and 1080p, 1, 4 and 16
     # slots; the exception kernel over the uniform grids, once with the
     # real entry count and once walking the padding too; the main path's
@@ -681,6 +1023,32 @@ def main() -> int:
                       seed, *dims, n_slots, 0.25, pcm=pcm, motion=motion),
                       dev), dims)
             checks[-1]["case"] = f"{motion}, pcm {pcm}"
+    # the MB-row offset of the row-sharded path: stripes of a 1080p frame
+    # (those of 2 and 4 positions, and one across the middle) predicted
+    # from the whole reference frames, windows across the frame's edges;
+    # the TPU signature's kernels at offsets 0 and 3 of a 20x12 frame,
+    # the exception ids rebased onto the stripe
+    frame = kc.mc_recon_inputs(kc.mc_recon_case(
+        18, 120, 68, 4, 0.25, pcm=True, motion="edge"), dev)
+    for first, n_rows in ((0, 34), (34, 34), (51, 17), (20, 17)):
+        check("mc_recon_stripe",
+              lambda *a: mc_recon_cuda(*a, mb_row_offset=first),
+              lambda *a: mc_recon_plain(*a, mb_row_offset=first),
+              kc.mc_recon_stripe(frame, 120, first, n_rows), (120, n_rows))
+        checks[-1]["case"] = f"edge, pcm, mb_row_offset {first}"
+    for first in (0, 3):
+        args = kc.mc_stripe(kc.mc_inputs(kc.mc_case(19, 20, 12, 4, 0.25),
+                                         dev), 20, first, 5)
+        check("mc_uniform",
+              lambda *a: mc_uniform_cuda(*a, mb_row_offset=first),
+              lambda *a: mc_uniform_plain(*a, mb_row_offset=first),
+              args[:5], (20, 5))
+        grids = mc_uniform_plain(*args[:5], 20, 5, mb_row_offset=first)
+        check("mc_exception",
+              lambda *a: mc_exception_cuda(*a, mb_row_offset=first),
+              lambda *a: mc_exception_plain(*a, mb_row_offset=first),
+              grids + args, (20, 5))
+        checks[-1]["case"] = checks[-2]["case"] = f"mb_row_offset {first}"
     # K9 on two tiles of the TPU kernel and on 16; the residual stage at
     # the decode tests' size, a mid size and 1080p
     for n in (512, 8192):
@@ -736,6 +1104,10 @@ def main() -> int:
     race("mc_recon", mc_recon_cuda, mc_recon_plain,
          kc.mc_recon_inputs(kc.mc_recon_case(9, 120, 68, 4, 0.06, pcm=True),
                             dev), (120, 68))
+    race("mc_recon_stripe", lambda *a: mc_recon_cuda(*a, mb_row_offset=34),
+         lambda *a: mc_recon_plain(*a, mb_row_offset=34),
+         kc.mc_recon_stripe(frame, 120, 34, 34), (120, 34))
+    races[-1]["mb_row_offset"] = 34
     emit({"phase": "kernels", "checks": checks, "graph_replays": races,
           "launches": dict(_kernels.LAUNCHES)})
 
@@ -882,6 +1254,15 @@ def main() -> int:
         emit({"phase": f"multistream_{n_streams}", **rec})
     emit({"phase": "multistream_eager",
           **multistream_eager(recorded_stream, launches)})
+
+    # the multi-device decoders on device lists that repeat the card
+    emit({"phase": "gop", **gop_phase(recorded_stream, launches)})
+    emit({"phase": "rowshard",
+          **rowshard_phase(recorded_stream, launches, per_frame)})
+    emit({"phase": "framepipe", **framepipe_phase(
+        recorded_stream, long_streams[1], launches)})
+    emit({"phase": "multistream_mesh", **multistream_mesh_phase(
+        recorded_stream, long_streams, launches)})
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -976,10 +1357,9 @@ def main() -> int:
             + 4 * 384 * n
         return byt, blocks * OPS_IDCT_BLOCK + 384 * n * OPS_DC_PEL
 
-    def frame_state(name, k):
-        """Frame k of stream `name` as the main path unpacks it on the
-        card: (unpack_meta's tensors, sparse ids, sparse levels, intra
-        ids, MB count)."""
+    def frame_at(name, k):
+        """A decoder stopped at frame k of stream `name`, and the frame's
+        Decoder._prepare()."""
         data = recorded_stream(name)[1]
         dec = Decoder()
         pos = frames = 0
@@ -991,8 +1371,15 @@ def main() -> int:
                 while dec._fe.next_output() is not None:
                     pass
                 if frames == k:
-                    break
+                    return dec, prep
                 frames += 1
+
+    def frame_state(name, k):
+        """Frame k of stream `name` as the main path unpacks it on the
+        card: (unpack_meta's tensors, sparse ids, sparse levels, intra
+        ids, MB count)."""
+        dec, prep = frame_at(name, k)
+        dec.close()
         n = prep["n_mbs"]
         (packed, stab, sids, slv, eids, epay, iids, ipay,
          slice_ids) = unpack_blob(blob_words(prep["blob"], dev), n,
@@ -1183,20 +1570,68 @@ def main() -> int:
                      "event_ms": timed_ms(lambda *a: old_route(*a, *dims),
                                           args, 20),
                      "max_abs_err_vs_mc_recon": old_err}
-    # K9 over 16 tiles of the TPU kernel; the residual stage on the
-    # second picture (a P picture) of the 1080p motion stream
+    # the stripe kernel of the row-sharded path on the same motion: the
+    # second of 2 stripes (34 MB rows at MB row 34) from the whole frames
+    stripe_args = kc.mc_recon_stripe(args, 120, 34, 34)
+    time_kernel("mc_recon_stripe",
+                lambda *a: mc_recon_cuda(*a, mb_row_offset=34),
+                lambda *a: mc_recon_plain(*a, mb_row_offset=34), stripe_args,
+                (120, 34), mc_recon_bound(stripe_args), 1, 5)
+
+    # K9 at the dense row-sharded step's sizes: the blocks of a stripe of
+    # 34 and of 17 MB rows (2 and 4 positions; 97,920 and 48,960 blocks)
+    # of the first two frames of the 1080p IPPP and motion streams (those
+    # the rowshard phase's dense step decodes), as residual_blocks makes
+    # them from the front-end's dense tensors
+    def dense_blocks(name, k, first, rows):
+        dec, prep = frame_at(name, k)
+        w = prep["w_mbs"]
+        t = dec._fe.tensors(prep["n_mbs"])
+        dec.close()
+        cut = slice(first * w, (first + rows) * w)
+        f = {field: tensor_from_numpy(t[field][cut], dev)
+             for field in ("coeff", "luma_dc", "chroma_dc", "qp_y",
+                           "chroma_qp_offset", "nnz", "nnz_dc",
+                           "mb_class")}
+        return residual_blocks(
+            f["coeff"], f["luma_dc"], f["chroma_dc"], f["qp_y"],
+            f["chroma_qp_offset"], f["nnz"], f["nnz_dc"],
+            f["mb_class"] == 4)[:4]
+
+    def idct_bound(n):
+        return (n * (16 * 4 * 2 + 8) + n * 64, n * OPS_IDCT_BLOCK)
+
+    late_checks = len(checks)
+    for name in ("ippp_1080p", "motion_1080p"):
+        for k in (0, 1):
+            for first, n_rows in ((34, 34), (51, 17)):
+                args = dense_blocks(name, k, first, n_rows)
+                n = args[0].shape[0]
+                check("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+                      lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,))
+                checks[-1]["case"] = f"{name} frame {k}, MB rows " \
+                    f"{first}-{first + n_rows - 1}"
+    # the row: the second of 2 stripes of the motion stream's P picture;
+    # and over 16 tiles of the TPU kernel (the earlier row's shape)
+    args = dense_blocks("motion_1080p", 1, 34, 34)
+    n = args[0].shape[0]
+    time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+                lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
+                idct_bound(n), 1, 5)
     n = 8192
     args = kc.case_inputs(kc.idct_case(16, n), kc.IDCT_STATE, dev)
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
-                (n * (16 * 4 * 2 + 8) + n * 64, n * OPS_IDCT_BLOCK), 1, 5)
+                idct_bound(n), 1, 5, True)
+    # the residual stage on the second picture (a P picture) of the 1080p
+    # motion stream
     t, sids, slv, _, n = motion
     args = residual_args(t, sids, slv)
     time_kernel("residual_sparse",
                 lambda *a: residual_planes_sparse_cuda(*a[:6], n),
                 lambda *a: residual_planes_sparse(*a[:6], n), args,
                 (120, 68), residual_bound(args, n), 1, 5)
-    emit({"phase": "timing", "gpu": smi,
+    emit({"phase": "timing", "gpu": smi, "checks": checks[late_checks:],
           "kernels": [{k: r[k] for k in ("name", "dims", "ms", "event_ms",
                                          "plain_ms", "bound_ms",
                                          "cuda_launches_per_call",

@@ -46,6 +46,18 @@
 // sums of the window's rows are computed once into shared memory
 // (int16: -2550..10710) and the vertical tap runs over them.
 //
+// Row-sharded decode (h264bsd_tpu_torch/parallel/rowshard.py) predicts a
+// stripe of height_mbs MB rows at MB row mb_row_offset of whole reference
+// frames ref_h pels tall: every kernel here takes both, as the TPU kernels
+// take mb_row_offset (pallas_mc.py:411); an MB's reference position is
+// its stripe row plus the offset, its output position its stripe row, and
+// the coordinate clamp is against the reference planes. The main path
+// passes offset 0 and ref_h = 16 * height_mbs.
+//
+// mc_recon_kernel (C entry h264_mc_recon) takes a whole frame, with
+// offset 0 and the frame's own height folded in; mc_recon_stripe_kernel
+// (h264_mc_recon_stripe), the same code, takes a stripe.
+//
 // mc_uniform_kernel and mc_exception_kernel are the same prediction with
 // the TPU kernels' own signature (grids (nMB, 16, 16) and (nMB, 8, 8),
 // exception quads over the uniform result); no decode calls them. They
@@ -76,7 +88,9 @@ struct McArgs {
   uint8_t* pred_cr;
   int n_slots;
   int width_mbs;
-  int height_mbs;
+  int height_mbs;    // of the grids
+  int ref_h;         // luma rows of a reference plane
+  int mb_row_offset; // the grids' first MB row in the reference frame
 };
 
 __device__ __forceinline__ int clampi(int v, int lo, int hi) {
@@ -173,11 +187,12 @@ __global__ void __launch_bounds__(256) mc_uniform_kernel(McArgs a) {
   __shared__ uint8_t wc[2][kChromaWin * kChromaWin];
   const int mb = blockIdx.x;
   const int t = threadIdx.x;
-  const int H = 16 * a.height_mbs, W = 16 * a.width_mbs;
+  const int H = a.ref_h, W = 16 * a.width_mbs;
   const int Hc = H / 2, Wc = W / 2;
   const int mvx = a.mv[mb * 32 + 0], mvy = a.mv[mb * 32 + 1];
   const int slot = slot_of(a, a.ref_slot[mb * 16]);
-  const int x16 = (mb % a.width_mbs) * 16, y16 = (mb / a.width_mbs) * 16;
+  const int x16 = (mb % a.width_mbs) * 16;
+  const int y16 = (mb / a.width_mbs + a.mb_row_offset) * 16;
 
   load_window(wy, a.dpb_y + (size_t)slot * H * W, H, W, y16 + (mvy >> 2) - 2,
               x16 + (mvx >> 2) - 2, kLumaWin, kLumaWin, t, 256);
@@ -218,13 +233,13 @@ __global__ void __launch_bounds__(64) mc_exception_kernel(
   const int j = t >> 4, i = t & 15;                 // block of the quad, pel
   // raster block of quad position j: quads {0,1,4,5} {2,3,6,7} ...
   const int b = (q >> 1) * 8 + (q & 1) * 2 + (j >> 1) * 4 + (j & 1);
-  const int H = 16 * a.height_mbs, W = 16 * a.width_mbs;
+  const int H = a.ref_h, W = 16 * a.width_mbs;
   const int Hc = H / 2, Wc = W / 2;
   const int mvx = a.mv[(mb * 16 + b) * 2 + 0];
   const int mvy = a.mv[(mb * 16 + b) * 2 + 1];
   const int slot = slot_of(a, a.ref_slot[mb * 16 + b]);
   const int bx = (mb % a.width_mbs) * 16 + (b & 3) * 4;
-  const int by = (mb / a.width_mbs) * 16 + (b >> 2) * 4;
+  const int by = (mb / a.width_mbs + a.mb_row_offset) * 16 + (b >> 2) * 4;
 
   // each 16-thread group stages its own block's windows
   load_window(wy[j], a.dpb_y + (size_t)slot * H * W, H, W,
@@ -256,23 +271,24 @@ __global__ void __launch_bounds__(64) mc_exception_kernel(
 static McArgs make_args(const void* dpb_y, const void* dpb_cb, const void* dpb_cr,
                  const void* mv, const void* ref_slot, void* pred_y,
                  void* pred_cb, void* pred_cr, int n_slots, int width_mbs,
-                 int height_mbs) {
+                 int height_mbs, int ref_h, int mb_row_offset) {
   return McArgs{(const uint8_t*)dpb_y, (const uint8_t*)dpb_cb,
                 (const uint8_t*)dpb_cr, (const int32_t*)mv,
                 (const int32_t*)ref_slot, (uint8_t*)pred_y,
                 (uint8_t*)pred_cb, (uint8_t*)pred_cr, n_slots, width_mbs,
-                height_mbs};
+                height_mbs, ref_h, mb_row_offset};
 }
 
 extern "C" int h264_mc_uniform(const void* dpb_y, const void* dpb_cb,
                                const void* dpb_cr, const void* mv,
                                const void* ref_slot, void* pred_y,
                                void* pred_cb, void* pred_cr, int n_slots,
-                               int width_mbs, int height_mbs, void* stream) {
+                               int width_mbs, int height_mbs, int ref_h,
+                               int mb_row_offset, void* stream) {
   mc_uniform_kernel<<<width_mbs * height_mbs, 256, 0,
                       (cudaStream_t)stream>>>(
       make_args(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, pred_y, pred_cb, pred_cr,
-                n_slots, width_mbs, height_mbs));
+                n_slots, width_mbs, height_mbs, ref_h, mb_row_offset));
   return (int)cudaGetLastError();
 }
 
@@ -281,11 +297,11 @@ extern "C" int h264_mc_exception(const void* dpb_y, const void* dpb_cb,
                                  const void* ref_slot, void* pred_y,
                                  void* pred_cb, void* pred_cr,
                                  const void* exc_ids, int n_exc, int n_slots,
-                                 int width_mbs, int height_mbs,
-                                 void* stream) {
+                                 int width_mbs, int height_mbs, int ref_h,
+                                 int mb_row_offset, void* stream) {
   mc_exception_kernel<<<n_exc, 64, 0, (cudaStream_t)stream>>>(
       make_args(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, pred_y, pred_cb, pred_cr,
-                n_slots, width_mbs, height_mbs),
+                n_slots, width_mbs, height_mbs, ref_h, mb_row_offset),
       (const int32_t*)exc_ids);
   return (int)cudaGetLastError();
 }
@@ -316,7 +332,7 @@ struct ReconArgs {
   const uint8_t* pcm_y;       // (nMB, 16, 16), or null: no I_PCM samples
   const uint8_t* pcm_cb;      // (nMB, 8, 8)
   const uint8_t* pcm_cr;
-  uint8_t* y;                 // (H, W)
+  uint8_t* y;                 // (H, W), H = 16 * height_mbs
   uint8_t* cb;                // (H/2, W/2)
   uint8_t* cr;
   int n_slots;
@@ -434,14 +450,25 @@ __device__ __forceinline__ void direct4(const uint8_t* row, int x, int w,
 
 // One block per MB. Thread t owns 4 horizontally adjacent pels: luma row
 // t/4, columns 4*(t%4).. for t < 64; for t >= 64, u = t - 64, row (u/2)%8,
-// columns 4*(u%2).. of Cb (u < 16) or Cr.
-__global__ void __launch_bounds__(kReconThreads) mc_recon_kernel(
-    ReconArgs a) {
+// columns 4*(u%2).. of Cb (u < 16) or Cr. kStripe: the planes are a
+// stripe at MB row mb_row_offset of reference frames ref_h rows tall
+// (mc_recon_stripe_kernel); else the whole frame (mc_recon_kernel, the
+// main path). The two stay apart because the offset costs the main path:
+// with it the kernel takes 80 registers a thread instead of 72, so 8
+// blocks fit an SM instead of 9, and this latency-bound kernel took 9%
+// longer on the 1080p case.
+template <bool kStripe>
+__device__ __forceinline__ void mc_recon_mb(const ReconArgs a, int ref_h,
+                                            int mb_row_offset) {
   __shared__ __align__(16) uint8_t smem[kReconSmem];
   const int mb = blockIdx.x, t = threadIdx.x;
-  const int W = 16 * a.width_mbs, H = 16 * a.height_mbs;
+  // H, Hc: the reference planes' rows; y16: the MB's row in the reference
+  // frame, out16 in the output planes
+  const int W = 16 * a.width_mbs, H = kStripe ? ref_h : 16 * a.height_mbs;
   const int Wc = W / 2, Hc = H / 2;
-  const int x16 = (mb % a.width_mbs) * 16, y16 = (mb / a.width_mbs) * 16;
+  const int x16 = (mb % a.width_mbs) * 16;
+  const int out16 = (mb / a.width_mbs) * 16;
+  const int y16 = kStripe ? out16 + 16 * mb_row_offset : out16;
   const bool luma = t < 64;
   const int u = luma ? t : t - 64;
   const int pl = luma ? 0 : 1 + (u >> 4);            // 0 Y, 1 Cb, 2 Cr
@@ -450,7 +477,7 @@ __global__ void __launch_bounds__(kReconThreads) mc_recon_kernel(
   const int pw = luma ? W : Wc, ph = luma ? H : Hc;
   uint8_t* out_plane = pl == 0 ? a.y : (pl == 1 ? a.cb : a.cr);
   uint32_t* out = reinterpret_cast<uint32_t*>(
-      out_plane + (size_t)((luma ? y16 : y16 / 2) + r) * pw +
+      out_plane + (size_t)((luma ? out16 : out16 / 2) + r) * pw +
       (luma ? x16 : x16 / 2) + c0);
 
   // the MB's class and motion in one round trip (lanes 0-15 and 16-31 of
@@ -593,6 +620,35 @@ __global__ void __launch_bounds__(kReconThreads) mc_recon_kernel(
          (uint32_t)clip8(pred[3] + res.w) << 24;
 }
 
+__global__ void __launch_bounds__(kReconThreads) mc_recon_kernel(
+    ReconArgs a) {
+  mc_recon_mb<false>(a, 0, 0);
+}
+
+__global__ void __launch_bounds__(kReconThreads) mc_recon_stripe_kernel(
+    ReconArgs a, int ref_h, int mb_row_offset) {
+  mc_recon_mb<true>(a, ref_h, mb_row_offset);
+}
+
+// the ReconArgs of h264_mc_recon and h264_mc_recon_stripe
+static ReconArgs recon_args(const void* dpb_y, const void* dpb_cb,
+                            const void* dpb_cr, const void* mv,
+                            const void* ref_slot, const void* mb_class,
+                            const void* res_l, const void* res_c,
+                            const void* pcm_y, const void* pcm_cb,
+                            const void* pcm_cr, void* y, void* cb, void* cr,
+                            int n_slots, int width_mbs, int height_mbs) {
+  return ReconArgs{(const uint8_t*)dpb_y,  (const uint8_t*)dpb_cb,
+                   (const uint8_t*)dpb_cr, (const uint32_t*)mv,
+                   (const int8_t*)ref_slot, (const uint8_t*)mb_class,
+                   (const int32_t*)res_l,  (const int32_t*)res_c,
+                   (const uint8_t*)pcm_y,  (const uint8_t*)pcm_cb,
+                   (const uint8_t*)pcm_cr, (uint8_t*)y,
+                   (uint8_t*)cb,           (uint8_t*)cr,
+                   n_slots,                width_mbs,
+                   height_mbs};
+}
+
 extern "C" int h264_mc_recon(const void* dpb_y, const void* dpb_cb,
                              const void* dpb_cr, const void* mv,
                              const void* ref_slot, const void* mb_class,
@@ -601,16 +657,26 @@ extern "C" int h264_mc_recon(const void* dpb_y, const void* dpb_cb,
                              const void* pcm_cr, void* y, void* cb, void* cr,
                              int n_slots, int width_mbs, int height_mbs,
                              void* stream) {
-  const ReconArgs a{(const uint8_t*)dpb_y,  (const uint8_t*)dpb_cb,
-                    (const uint8_t*)dpb_cr, (const uint32_t*)mv,
-                    (const int8_t*)ref_slot, (const uint8_t*)mb_class,
-                    (const int32_t*)res_l,  (const int32_t*)res_c,
-                    (const uint8_t*)pcm_y,  (const uint8_t*)pcm_cb,
-                    (const uint8_t*)pcm_cr, (uint8_t*)y,
-                    (uint8_t*)cb,           (uint8_t*)cr,
-                    n_slots,                width_mbs,
-                    height_mbs};
   mc_recon_kernel<<<width_mbs * height_mbs, kReconThreads, 0,
-                    (cudaStream_t)stream>>>(a);
+                    (cudaStream_t)stream>>>(
+      recon_args(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l, res_c,
+                 pcm_y, pcm_cb, pcm_cr, y, cb, cr, n_slots, width_mbs,
+                 height_mbs));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int h264_mc_recon_stripe(
+    const void* dpb_y, const void* dpb_cb, const void* dpb_cr,
+    const void* mv, const void* ref_slot, const void* mb_class,
+    const void* res_l, const void* res_c, const void* pcm_y,
+    const void* pcm_cb, const void* pcm_cr, void* y, void* cb, void* cr,
+    int n_slots, int width_mbs, int height_mbs, int ref_h,
+    int mb_row_offset, void* stream) {
+  mc_recon_stripe_kernel<<<width_mbs * height_mbs, kReconThreads, 0,
+                           (cudaStream_t)stream>>>(
+      recon_args(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, mb_class, res_l, res_c,
+                 pcm_y, pcm_cb, pcm_cr, y, cb, cr, n_slots, width_mbs,
+                 height_mbs),
+      ref_h, mb_row_offset);
   return (int)cudaGetLastError();
 }

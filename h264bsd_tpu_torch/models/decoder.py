@@ -39,7 +39,7 @@ from ..ops.conceal import conceal_picture
 from ..ops.cuda_deblock_wf import deblock_frame_wavefront
 from ..ops.reconstruct import build_pcm_tensors, reconstruct_frame_fast
 from ..ops.unpack import compact_blob_words, unpack_blob, widen_words
-from .graphs import STATS, FrameGraph
+from .graphs import FrameGraph, count
 from .state import new_ring, tensor_from_numpy
 
 # intra-MB count above which a frame runs the anti-diagonal wavefront
@@ -156,6 +156,40 @@ def _frame_decode_body(row, dpb, pcm, width_mbs, height_mbs, caps,
         ring.index_copy_(0, slot, plane[None])
 
 
+def stage_rows(preps, device):
+    """The frames' input rows (see _frame_decode_body), (K, ROW_SCALARS
+    + blob words) int32, on `device` in one host-to-device copy (from
+    pinned memory on the card, so the copy is asynchronous)."""
+    rows = np.empty((len(preps), ROW_SCALARS + preps[0]["blob"].nbytes
+                     // 4), np.int32)
+    for row, p in zip(rows, preps):
+        info = p["info"]
+        row[:ROW_SCALARS] = (info["slot"], bool(info["conceal_from_ref"]),
+                             info["conceal_ref_slot"])
+        row[ROW_SCALARS:] = p["blob"].view(np.int32)
+    host = torch.from_numpy(rows)
+    if device.type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def spiral_of(prep):
+    """The spiral= argument of _frame_decode_body for a frame that needs
+    the exact spiral concealment (a partial loss without a usable
+    reference), else None."""
+    info = prep["info"]
+    n_mbs = prep["n_mbs"]
+    n_conc = info["num_concealed_mbs"]
+    if not (0 < n_conc < n_mbs and (not info["conceal_from_ref"]
+                                    or info["conceal_ref_slot"] < 0)):
+        return None
+    # decoded MBs from the frame's own blob (the parser may already be
+    # ahead on a producer thread): packed records, 8 B/MB, follow the
+    # 64-byte header; mb_class is byte 1's low 3 bits
+    mb_class = prep["blob"][64:64 + n_mbs * 8].reshape(n_mbs, 8)[:, 1] & 7
+    return mb_class != 6, bool(info["conceal_from_ref"])
+
+
 def _to_rgba(y, cb, cr, full_range=False):
     """BT.601 fixed-point YUV->RGBA (reference h264bsdConvertToRGBA
     decoder.c:1163-1216); full_range applies the full-swing matrix for
@@ -193,6 +227,12 @@ class OutputPicture:
     def yuv_planes(self):
         return self.planes
 
+    def detach(self):
+        """The JAX package's detach (copy the planes out of the DPB ring):
+        this picture's planes are its own already, copied out of the ring
+        by Decoder._make_output."""
+        return self
+
     def yuv_bytes(self) -> bytes:
         """Planar uncropped YUV420, reference picture-buffer layout."""
         return b"".join(p.cpu().numpy().tobytes() for p in self.planes)
@@ -225,14 +265,16 @@ class Decoder:
         going grey. slot_margin adds spare ring slots (FIFO-rotated by
         the C++ allocator). caps_pin: see pin_caps_for_stream."""
         self.device = resolve_device(device)
-        self._fe = fe.FrontendDecoder(no_output_reordering,
-                                      intra_concealment, slot_margin)
+        self._fe_args = (no_output_reordering, intra_concealment,
+                         slot_margin)
+        self._fe = fe.FrontendDecoder(*self._fe_args)
         self._caps_pin = caps_pin
         # sticky-caps history per wavefront class (see _prepare)
         self._cap_hist = {}
         self._dpb = None           # (y, cb, cr) ring tensors
         self._geom = None          # stream_info dict
         self._graphs = {}          # graph key -> FrameGraph over _dpb
+        self._spare = None         # a dropped ring and its graphs
         self._pool = None          # the graphs' memory pool and
         self._side = None          # capture stream, shared
 
@@ -240,6 +282,18 @@ class Decoder:
 
     def close(self):
         self._fe.close()
+
+    def restart(self):
+        """Start over as a fresh decoder of the same options (a new
+        front-end, no caps history, no ring) for another stream, keeping
+        the ring and its graphs aside: a picture of the ring's shape takes
+        them back zeroed (_ensure_dpb), so a decoder that decodes stream
+        after stream of one geometry captures each graph key once."""
+        self._fe.close()
+        self._fe = fe.FrontendDecoder(*self._fe_args)
+        self._cap_hist = {}
+        self._geom = None
+        self._set_ring(None)
 
     # -- decoding ----------------------------------------------------------
 
@@ -260,13 +314,27 @@ class Decoder:
 
     def _set_ring(self, ring):
         """Replace the DPB ring; the graphs captured over the old one go
-        with it."""
+        with it. Dropped (ring None), the old ring and its graphs are kept
+        aside for _ensure_dpb."""
+        if ring is None and self._dpb is not None:
+            self._spare = (self._dpb, self._graphs)
         self._dpb = ring
-        self._graphs.clear()
+        self._graphs = {}
 
     def _ensure_dpb(self, g):
+        """A ring of the geometry `g`: the current one, or the ring kept
+        aside when it has that shape (zeroed, as a new ring is, with its
+        graphs), or a new one."""
         shape = (g["dpb_slots"], g["height_mbs"] * 16, g["width_mbs"] * 16)
-        if self._dpb is None or tuple(self._dpb[0].shape) != shape:
+        if self._dpb is not None and tuple(self._dpb[0].shape) == shape:
+            return
+        spare, self._spare = self._spare, None
+        if spare is not None and tuple(spare[0][0].shape) == shape:
+            for plane in spare[0]:
+                plane.zero_()
+            self._set_ring(spare[0])
+            self._graphs = spare[1]
+        else:
             self._set_ring(new_ring(g["dpb_slots"], g["height_mbs"],
                                     g["width_mbs"], self.device))
 
@@ -326,20 +394,8 @@ class Decoder:
                     non_existing=non_existing)
 
     def _stage(self, preps):
-        """The frames' input rows (see _frame_decode_body), (K, ROW_SCALARS
-        + blob words) int32, on the device in one host-to-device copy
-        (from pinned memory on the card, so the copy is asynchronous)."""
-        rows = np.empty((len(preps), ROW_SCALARS + preps[0]["blob"].nbytes
-                         // 4), np.int32)
-        for row, p in zip(rows, preps):
-            info = p["info"]
-            row[:ROW_SCALARS] = (info["slot"], bool(info["conceal_from_ref"]),
-                                 info["conceal_ref_slot"])
-            row[ROW_SCALARS:] = p["blob"].view(np.int32)
-        host = torch.from_numpy(rows)
-        if self.device.type == "cuda":
-            host = host.pin_memory()
-        return host.to(self.device, non_blocking=True)
+        """The frames' input rows on the decoder's device (stage_rows)."""
+        return stage_rows(preps, self.device)
 
     @staticmethod
     def _body_args(prep):
@@ -365,7 +421,6 @@ class Decoder:
     def _submit(self, prep):
         """Device half of a frame, eagerly: transfer the blob and run the
         body (the frames _windowable rejects)."""
-        info = prep["info"]
         n_mbs = prep["n_mbs"]
         self._ensure_dpb(prep["geom"])
         dev = self.device
@@ -381,22 +436,12 @@ class Decoder:
         if len(ipcm_mb):
             pcm = tuple(torch.from_numpy(p).to(dev) for p in
                         build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data))
-        blob = prep["blob"]
         # a partial loss without a usable reference needs the exact spiral
         # concealment (host); a partial loss with one and the whole-picture
         # cases stay on the device (both exact)
-        n_conc = info["num_concealed_mbs"]
-        spiral = None
-        if 0 < n_conc < n_mbs and (not info["conceal_from_ref"]
-                                   or info["conceal_ref_slot"] < 0):
-            # decoded MBs from the frame's own blob (the parser may already
-            # be ahead on the producer thread): packed records, 8 B/MB,
-            # follow the 64-byte header; mb_class is byte 1's low 3 bits
-            mb_class = blob[64:64 + n_mbs * 8].reshape(n_mbs, 8)[:, 1] & 7
-            spiral = (mb_class != 6, bool(info["conceal_from_ref"]))
         _frame_decode_body(self._stage([prep])[0], self._dpb, pcm,
-                           **self._body_args(prep), spiral=spiral)
-        STATS["eager_frames"] += 1
+                           **self._body_args(prep), spiral=spiral_of(prep))
+        count("eager_frames")
 
     def _run_graphed(self, prep, row):
         """Decode a windowable frame from its input row on the device:
@@ -406,7 +451,7 @@ class Decoder:
         args = self._body_args(prep)
         if self.device.type == "cpu":
             _frame_decode_body(row, self._dpb, None, **args)
-            STATS["eager_frames"] += 1
+            count("eager_frames")
             return
         key = (prep["w_mbs"], prep["h_mbs"], self._dpb[0].shape[0],
                prep["caps"], row.shape[0], prep["wavefront"],

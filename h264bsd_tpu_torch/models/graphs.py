@@ -15,15 +15,20 @@ key's first frame and does what must not happen inside a capture (kernel
 builds, library loading, the cached constant tables of ops/consts.py).
 Then it is captured once into the decoder's memory pool. Every later frame
 of the key copies its row into the static input and replays. A capture
-that fails raises; nothing runs the frame eagerly instead.
+that fails raises; nothing runs the frame eagerly instead. Captures on one
+device take turns (a lock per device), so decoders on several threads
+(parallel/gop.py) never capture at once on one device; their replays and
+eager frames go on meanwhile.
 
 Launch counts: _kernels.LAUNCHES counts wrapper calls, which a replay
-does not make. The counts a capture adds are taken back (those launches
-were recorded, not run) and added again at every replay.
+does not make. A capture's launches go to its thread's record
+(_kernels.recording), not to LAUNCHES, and every replay adds them.
+STATS changes under a lock, as threads share it.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 
 import torch
@@ -36,11 +41,26 @@ from ..ops import _kernels
 # first run included); reset_stats() zeroes them
 STATS = {"graph_captures": 0, "graph_replays": 0, "eager_frames": 0,
          "capture_ms": 0.0}
+_stats_lock = threading.Lock()
+# one capture at a time per device
+_capture_locks: dict = {}
 
 
 def reset_stats() -> None:
-    for k in STATS:
-        STATS[k] = 0
+    with _stats_lock:
+        for k in STATS:
+            STATS[k] = 0
+
+
+def count(key: str, n=1) -> None:
+    """Add n to STATS[key]."""
+    with _stats_lock:
+        STATS[key] += n
+
+
+def _capture_lock(device: torch.device) -> threading.Lock:
+    with _stats_lock:
+        return _capture_locks.setdefault(device, threading.Lock())
 
 
 class FrameGraph:
@@ -51,36 +71,34 @@ class FrameGraph:
     frees in `pool` serves the next."""
 
     def __init__(self, body, row, pool, side):
-        t0 = time.perf_counter()
-        self.row = row.clone()
-        cur = torch.cuda.current_stream(row.device)
-        side.wait_stream(cur)
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.stream(side):
-            body(self.row)
-            before = dict(_kernels.LAUNCHES)
-            # capture_begin/end, not the torch.cuda.graph context: that one
-            # synchronizes and empties the device and pinned-host caches
-            # on every capture. thread_local: the parse-ahead thread's host
-            # calls cannot invalidate the capture
-            self.graph.capture_begin(pool=pool,
-                                     capture_error_mode="thread_local")
-            try:
+        with _capture_lock(row.device):
+            t0 = time.perf_counter()
+            self.row = row.clone()
+            cur = torch.cuda.current_stream(row.device)
+            side.wait_stream(cur)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(side):
                 body(self.row)
-            finally:
-                self.graph.capture_end()
-        cur.wait_stream(side)
-        self.launches = {k: v - before[k]
-                         for k, v in _kernels.LAUNCHES.items()}
-        for k, v in self.launches.items():
-            _kernels.LAUNCHES[k] -= v
-        STATS["graph_captures"] += 1
-        STATS["capture_ms"] += 1e3 * (time.perf_counter() - t0)
+                # capture_begin/end, not the torch.cuda.graph context: that
+                # one synchronizes and empties the device and pinned-host
+                # caches on every capture. thread_local: host calls of
+                # other threads (the parse-ahead thread, other decoders)
+                # cannot invalidate the capture
+                with _kernels.recording() as self.launches:
+                    self.graph.capture_begin(
+                        pool=pool, capture_error_mode="thread_local")
+                    try:
+                        body(self.row)
+                    finally:
+                        self.graph.capture_end()
+            cur.wait_stream(side)
+            with _stats_lock:
+                STATS["graph_captures"] += 1
+                STATS["capture_ms"] += 1e3 * (time.perf_counter() - t0)
 
     def replay(self, row) -> None:
         """Decode the frame of `row` (same key) by replaying the graph."""
         self.row.copy_(row)
         self.graph.replay()
-        for k, v in self.launches.items():
-            _kernels.LAUNCHES[k] += v
-        STATS["graph_replays"] += 1
+        _kernels.add_launches(self.launches)
+        count("graph_replays")

@@ -13,7 +13,11 @@ Each C entry point launches on the stream it is given, allocates
 nothing, and returns cudaGetLastError(); launch() raises on a non-zero
 code. LAUNCHES counts, per kernel, the wrapper calls that launched it;
 a CUDA graph replay of the frame body adds the counts its capture
-recorded (models/graphs.py).
+recorded (models/graphs.py). Threads share the counts (several decoders
+may run at once, parallel/gop.py): they change under one lock, and a
+launch made while its thread records (recording(), a graph capture) goes
+to that thread's record instead, so a capture on one thread never counts
+another thread's launches.
 """
 
 from __future__ import annotations
@@ -22,6 +26,8 @@ import ctypes as ct
 import hashlib
 import os
 import subprocess
+import threading
+from contextlib import contextmanager
 from pathlib import Path
 
 import torch
@@ -51,9 +57,11 @@ ENTRY = {
                         [_P] * 15 + [_I, _I, _I, _P]),
     "h264_intra_wavefront": ("intra_wf", "intra_wf",
                              [_P] * 13 + [_I, _I, _P]),
-    "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 3 + [_P]),
-    "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 4 + [_P]),
+    "h264_mc_uniform": ("mc_uniform", "mc", [_P] * 8 + [_I] * 5 + [_P]),
+    "h264_mc_exception": ("mc_exception", "mc", [_P] * 9 + [_I] * 6 + [_P]),
     "h264_mc_recon": ("mc_recon", "mc", [_P] * 14 + [_I] * 3 + [_P]),
+    "h264_mc_recon_stripe": ("mc_recon_stripe", "mc",
+                             [_P] * 14 + [_I] * 5 + [_P]),
     "h264_idct_blocks": ("idct_blocks", "transform", [_P] * 5 + [_I, _P]),
     "h264_residual_sparse": ("residual_sparse", "transform",
                              [_P] * 9 + [_I, _I, _P]),
@@ -63,11 +71,38 @@ ENTRY = {
 LAUNCHES = {name: 0 for name, _, _ in ENTRY.values()}
 
 _libs: dict = {}
+# guards LAUNCHES and the first load of each library
+_lock = threading.RLock()
+# the launch record of the calling thread while it records, else None
+_local = threading.local()
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _lock:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+
+
+def add_launches(counts: dict) -> None:
+    """Add per-kernel counts to LAUNCHES (a graph replay adds those its
+    capture recorded)."""
+    with _lock:
+        for k, v in counts.items():
+            LAUNCHES[k] += v
+
+
+@contextmanager
+def recording():
+    """Within the block, the calling thread's launches are counted in
+    the dict it yields and not in LAUNCHES (a graph capture records
+    launches that run only when the graph is replayed)."""
+    record = {k: 0 for k in LAUNCHES}
+    outer = getattr(_local, "record", None)
+    _local.record = record
+    try:
+        yield record
+    finally:
+        _local.record = outer
 
 
 def _nvcc() -> str:
@@ -132,14 +167,15 @@ def build(force: bool = False) -> list[Path]:
 
 
 def _function(entry: str):
-    if entry not in _libs:
-        _, stem, argtypes = ENTRY[entry]
-        build()
-        fn = getattr(ct.CDLL(str(lib_path(stem))), entry)
-        fn.argtypes = argtypes
-        fn.restype = ct.c_int
-        _libs[entry] = fn
-    return _libs[entry]
+    with _lock:
+        if entry not in _libs:
+            _, stem, argtypes = ENTRY[entry]
+            build()
+            fn = getattr(ct.CDLL(str(lib_path(stem))), entry)
+            fn.argtypes = argtypes
+            fn.restype = ct.c_int
+            _libs[entry] = fn
+        return _libs[entry]
 
 
 def ptr(t: torch.Tensor, dtype: torch.dtype, shape: tuple, name: str,
@@ -168,4 +204,14 @@ def launch(entry: str, device: torch.device, *args) -> None:
         rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{entry}: CUDA error {rc} at launch")
-    LAUNCHES[ENTRY[entry][0]] += 1
+    count_launch(ENTRY[entry][0])
+
+
+def count_launch(name: str) -> None:
+    """Count one launch of kernel `name`: in the calling thread's record
+    while it records, else in LAUNCHES."""
+    record = getattr(_local, "record", None)
+    if record is not None:
+        record[name] += 1
+    else:
+        add_launches({name: 1})

@@ -6,6 +6,12 @@ csrc/transform.cu, one block-transform body with two entry points:
 
 - idct_blocks: K9 itself, (N, 16) levels and scales with an optional
   external DC per block; plain version transform.idct_blocks_plain.
+- residual_transform_cuda: the dense residual transform (the JAX
+  package's residual_transform, ops/transform.py:137) of the row-sharded
+  stripe step, through idct_blocks: the DC transforms, dequant scales,
+  external DC and skip flags in PyTorch, the nMB x 24 blocks in one
+  launch of K9, then the empty-block mask; plain version
+  transform.residual_transform.
 - residual_planes_sparse_cuda: the whole residual stage of the main
   path in one memset and two launches: a map from block id to sparse
   entry, then one warp per MB that gathers and transforms its luma and
@@ -19,7 +25,8 @@ from __future__ import annotations
 import torch
 
 from . import _kernels
-from .transform import idct_blocks_plain, residual_planes_sparse
+from .transform import (idct_blocks_plain, residual_blocks,
+                        residual_planes_sparse)
 
 
 def idct_blocks(coeff, scales, ext_dc, skip_dc):
@@ -43,6 +50,18 @@ def idct_blocks(coeff, scales, ext_dc, skip_dc):
                     _kernels.ptr(sk, i32, (n,), "skip_dc"),
                     _kernels.ptr(out, i32, (n, 16), "out"), n)
     return out
+
+
+def residual_transform_cuda(coeff, luma_dc, chroma_dc, qp_y,
+                            chroma_qp_offset, nnz, nnz_dc, is_i16):
+    """The dense residual transform (see transform.residual_transform)
+    with its blocks through K9 (idct_blocks). CPU tensors run the plain
+    version."""
+    n_mb = coeff.shape[0]
+    *blocks, empty = residual_blocks(coeff, luma_dc, chroma_dc, qp_y,
+                                     chroma_qp_offset, nnz, nnz_dc, is_i16)
+    res = idct_blocks(*blocks).reshape(n_mb, 24, 16)
+    return torch.where(empty[:, :, None], 0, res), empty
 
 
 def residual_planes_sparse_cuda(sparse_ids, sparse_levels, qp_y,

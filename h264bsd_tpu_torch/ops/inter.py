@@ -143,12 +143,16 @@ def block_positions(mb, b, width_mbs, device):
 
 
 def inter_predict_frame(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
-                        height_mbs):
+                        height_mbs, mb_row_offset=0):
     """Motion-compensated prediction for every 4x4 block of the frame.
 
     Args:
       dpb_y: (nSlots, H, W) uint8; dpb_cb/dpb_cr: (nSlots, H/2, W/2) uint8.
       mv: (nMB, 16, 2) quarter-pel, raster blocks; ref_slot (nMB, 16).
+      mb_row_offset: the first MB row's position in the reference frame
+        (the row-sharded path, parallel/rowshard.py, predicts a stripe of
+        the frame from whole reference frames: every coordinate clamps
+        into the reference planes).
 
     Returns:
       pred_y (nMB, 16, 16), pred_cb/pred_cr (nMB, 8, 8) int32 predictions
@@ -159,6 +163,7 @@ def inter_predict_frame(dpb_y, dpb_cb, dpb_cr, mv, ref_slot, width_mbs,
     dev = dpb_y.device
     blk = torch.arange(n_blk, device=dev)
     bx, by = block_positions(blk // 16, blk % 16, width_mbs, dev)
+    by = by + 16 * mb_row_offset
     pred, pcb, pcr = predict_blocks(
         dpb_y, dpb_cb, dpb_cr, bx, by, mv.reshape(n_blk, 2)[:, 0],
         mv.reshape(n_blk, 2)[:, 1], ref_slot.reshape(n_blk))

@@ -11,7 +11,10 @@ externally transformed DC terms are added densely before the single
 
 This module is the plain PyTorch version of the residual stage; the
 wrapper that launches its CUDA kernel (K9's body) on the card is
-ops/cuda_transform.py.
+ops/cuda_transform.py. residual_transform is the dense counterpart (the
+JAX package's ops/transform.py:137, on the front-end's dense per-MB
+coefficients), which the row-sharded stripe step runs through K9,
+ops/cuda_transform.residual_transform_cuda.
 """
 
 from __future__ import annotations
@@ -227,3 +230,57 @@ def residual_planes_sparse(sparse_ids, sparse_levels, qp_y,
     residual = ((buf.reshape(n_mb, 24, 16) + dc[:, :, None] + 32) >> 6)
     res_l, res_c = mb_residual_planes(residual.to(torch.int32))
     return res_l.contiguous(), res_c.contiguous()
+
+
+def residual_blocks(coeff, luma_dc, chroma_dc, qp_y, chroma_qp_offset, nnz,
+                    nnz_dc, is_i16):
+    """The dense residual transform's input to K9 (the JAX package's
+    residual_transform, ops/transform.py:137-189, up to its IDCT) and its
+    empty-block mask: (nMB*24, 16) levels and dequant scales, (nMB*24,)
+    external DC and skip flags, (nMB, 24) bool. A block takes the
+    externally transformed DC at position 0 on a luma block of an
+    Intra_16x16 MB and on every chroma block."""
+    n_mb = coeff.shape[0]
+    cqp = chroma_qp(qp_y, chroma_qp_offset)
+    nnz_dc = nnz_dc.long()
+    ldc = torch.where((nnz_dc[:, 0] > 0)[:, None],
+                      luma_dc_transform(luma_dc, qp_y), luma_dc.long())
+    has_cdc = (nnz_dc[:, 1] > 0) | (nnz_dc[:, 2] > 0)
+    cdc = torch.where(has_cdc[:, None], chroma_dc_transform(chroma_dc, cqp),
+                      chroma_dc.long())
+    is_i16 = is_i16.bool()
+    scales = torch.cat([
+        dequant_scales(qp_y)[:, None].expand(-1, 16, -1),
+        dequant_scales(cqp)[:, None].expand(-1, 8, -1)], dim=1)
+    ext_dc = torch.cat([torch.where(is_i16[:, None], ldc, 0), cdc], dim=1)
+    skip = torch.cat([is_i16[:, None].expand(-1, 16),
+                      torch.ones((n_mb, 8), dtype=torch.bool,
+                                 device=coeff.device)], dim=1)
+    nnz = nnz.long()
+    luma_empty = torch.where(is_i16[:, None],
+                             (ldc == 0) & (nnz[:, :16] == 0),
+                             nnz[:, :16] == 0)
+    chroma_empty = (cdc == 0) & (nnz[:, 16:] == 0)
+    empty = torch.cat([luma_empty, chroma_empty], dim=1)
+    return (coeff.to(torch.int32).reshape(-1, 16),
+            scales.to(torch.int32).reshape(-1, 16),
+            ext_dc.to(torch.int32).reshape(-1),
+            skip.to(torch.int32).reshape(-1), empty)
+
+
+def residual_transform(coeff, luma_dc, chroma_dc, qp_y, chroma_qp_offset,
+                       nnz, nnz_dc, is_i16):
+    """Full-frame residual processing on the dense per-MB coefficients
+    (the JAX package's residual_transform, ops/transform.py:137).
+
+    coeff (nMB, 24, 16) raw raster levels, blocks 0-15 luma, 16-19 cb,
+    20-23 cr; luma_dc (nMB, 16) and chroma_dc (nMB, 8) raw DC levels;
+    qp_y, chroma_qp_offset (nMB,); nnz (nMB, 24) and nnz_dc (nMB, 3)
+    coefficient counts; is_i16 (nMB,) bool. Returns the (nMB, 24, 16)
+    int32 residual, 0 on empty blocks, and the (nMB, 24) empty mask. The
+    plain version of ops/cuda_transform.residual_transform_cuda."""
+    n_mb = coeff.shape[0]
+    *blocks, empty = residual_blocks(coeff, luma_dc, chroma_dc, qp_y,
+                                     chroma_qp_offset, nnz, nnz_dc, is_i16)
+    res = idct_blocks_plain(*blocks).reshape(n_mb, 24, 16)
+    return torch.where(empty[:, :, None], 0, res), empty

@@ -29,12 +29,17 @@ version's _submit_exact does for the first. Slots of non-existing frames
 are zeroed before the round. On the CPU the bodies run eagerly, one
 after the other.
 
-The JAX version's mesh= and stream_axis= (streams sharded over devices)
-wait for the port's multi-GPU decoders (gop, framepipe, rowshard).
+With a mesh (parallel/mesh.py) the streams are sharded over its
+stream_axis, as in the JAX version (multistream.py:79-98, :204-221):
+position p decodes its contiguous block of N / n streams on its own
+device, with its own ring slice and its own round graph. The round's
+parse, caps and blob bytes stay shared, so a stream's blobs and pictures
+are those of the decoder without a mesh.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import queue
 import threading
@@ -48,10 +53,17 @@ from ..device import resolve_device
 from ..frontend import binding as fe
 from ..models.decoder import (ROW_SCALARS, WF_THRESH, _frame_decode_body,
                               caps_from_counts, ladder, tier)
-from ..models.graphs import STATS, FrameGraph
+from ..models.graphs import FrameGraph, count
 from ..models.state import new_ring
 from ..ops.reconstruct import build_pcm_tensors
 from ..ops.unpack import compact_blob_words
+
+
+def _on(device):
+    """The device's context on the card (a shard's graphs and streams
+    belong to its device); nothing on the CPU."""
+    return torch.cuda.device(device) if device.type == "cuda" \
+        else contextlib.nullcontext()
 
 
 def _round_body(rows, dpb, branches, **args):
@@ -73,31 +85,65 @@ def _round_body(rows, dpb, branches, **args):
         cur.wait_stream(branch)
 
 
+class _Shard:
+    """Streams lo..hi-1 on one device: their slice of the ring (y, cb,
+    cr), (hi - lo, slots, H, W), the round graphs over it (round key ->
+    FrameGraph), the graphs' memory pool and capture stream, and the
+    bodies' CUDA streams."""
+
+    def __init__(self, device, lo, hi):
+        self.device, self.lo, self.hi = device, lo, hi
+        self.dpb = None
+        self.graphs = {}
+        self.pool = self.side = self.branches = None
+
+
 class MultiStreamDecoder:
     """Decode N same-resolution streams concurrently on `device` (the
     current CUDA device when None; "cpu" runs the kernels' plain
-    versions), one batched device step per round. Streams out of data
-    stop contributing. outputs[i] lists stream i's released pictures in
+    versions), one batched device step per round; with `mesh`, sharded
+    over its `stream_axis` (N must be divisible by the axis size), each
+    position's block of streams on its device. Streams out of data stop
+    contributing. outputs[i] lists stream i's released pictures in
     display order ({"slot", "pic_id", "is_idr", "num_err_mbs"});
     picture(i, j) reads picture j of stream i from the ring, whose slots
     later rounds overwrite, as in the JAX version."""
 
-    def __init__(self, streams: list[bytes], device=None):
-        self.device = resolve_device(device)
+    def __init__(self, streams: list[bytes], device=None, mesh=None,
+                 stream_axis: str = "stream"):
         self.n = len(streams)
+        if mesh is None:
+            self._shards = [_Shard(resolve_device(device), 0, self.n)]
+        else:
+            devices = mesh.axis_devices(stream_axis)
+            if self.n % len(devices):
+                raise ValueError(
+                    f"{self.n} streams not divisible by mesh axis "
+                    f"{stream_axis!r} size {len(devices)}")
+            per = self.n // len(devices)
+            self._shards = [_Shard(d, k * per, (k + 1) * per)
+                            for k, d in enumerate(devices)]
+        self.device = self._shards[0].device
         self.data = streams
         self.pos = [0] * self.n
         self.fes = [fe.FrontendDecoder() for _ in range(self.n)]
         self.geom = None           # (width_mbs, height_mbs, ring slots)
-        self.dpb = None            # (y, cb, cr) rings, (N, slots, H, W)
         self.outputs = [[] for _ in range(self.n)]
         self._workers = ThreadPoolExecutor(
             min(self.n, os.cpu_count() or 1),
             thread_name_prefix="h264-parse")
-        self._graphs = {}          # round key -> FrameGraph over dpb
-        self._pool = None          # the graphs' memory pool, capture
-        self._side = None          # stream and the bodies' streams
-        self._branches = None
+
+    @property
+    def dpb(self):
+        """The (y, cb, cr) ring, (N, slots, H, W); with a mesh, a list of
+        the positions' rings."""
+        rings = [sh.dpb for sh in self._shards]
+        return rings[0] if len(rings) == 1 else rings
+
+    def _shard_of(self, i):
+        """(shard, index in its ring) of stream i."""
+        sh = next(sh for sh in self._shards if sh.lo <= i < sh.hi)
+        return sh, i - sh.lo
 
     def close(self):
         """Stop the parse workers and free the front-ends."""
@@ -214,56 +260,69 @@ class MultiStreamDecoder:
     # -- device half --------------------------------------------------------
 
     def _ensure_dpb(self, geom):
-        if self.dpb is None:
-            w_mbs, h_mbs, slots = geom
-            self.dpb = tuple(p.view(self.n, slots, *p.shape[1:]) for p in
-                             new_ring(self.n * slots, h_mbs, w_mbs,
-                                      self.device))
+        w_mbs, h_mbs, slots = geom
+        for sh in self._shards:
+            if sh.dpb is None:
+                n = sh.hi - sh.lo
+                sh.dpb = tuple(p.view(n, slots, *p.shape[1:]) for p in
+                               new_ring(n * slots, h_mbs, w_mbs, sh.device))
 
-    def _run_round(self, rows, args):
-        """The round's batched bodies from their input rows (N, words):
-        the round key's graph, replayed or captured (the capture's first
-        run decodes the round); on the CPU the bodies one by one."""
-        if self.device.type == "cpu":
-            _round_body(rows, self.dpb, None, **args)
-            STATS["eager_frames"] += self.n
+    def _run_round(self, sh, rows, args):
+        """Shard sh's batched bodies from their input rows (n, words): the
+        round key's graph, replayed or captured (the capture's first run
+        decodes the round); on the CPU the bodies one by one."""
+        if sh.device.type == "cpu":
+            _round_body(rows, sh.dpb, None, **args)
+            count("eager_frames", sh.hi - sh.lo)
             return
-        key = (args["width_mbs"], args["height_mbs"], self.dpb[0].shape[1],
+        key = (args["width_mbs"], args["height_mbs"], sh.dpb[0].shape[1],
                args["caps"], rows.shape[1], args["intra_wavefront"])
-        graph = self._graphs.get(key)
+        graph = sh.graphs.get(key)
         if graph is not None:
             graph.replay(rows)
             return
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-            self._side = torch.cuda.Stream(self.device)
-            self._branches = [torch.cuda.Stream(self.device)
-                              for _ in range(self.n)]
-        self._graphs[key] = FrameGraph(
-            partial(_round_body, dpb=self.dpb, branches=self._branches,
-                    **args), rows, self._pool, self._side)
+        if sh.pool is None:
+            sh.pool = torch.cuda.graph_pool_handle()
+            sh.side = torch.cuda.Stream(sh.device)
+            sh.branches = [torch.cuda.Stream(sh.device)
+                           for _ in range(sh.hi - sh.lo)]
+        sh.graphs[key] = FrameGraph(
+            partial(_round_body, dpb=sh.dpb, branches=sh.branches, **args),
+            rows, sh.pool, sh.side)
 
     def _submit(self, rnd):
         self._ensure_dpb(rnd["geom"])
         w_mbs, h_mbs, _ = rnd["geom"]
         for i, slot in rnd["non_existing"]:
-            for plane in self.dpb:
-                plane[i, slot].zero_()
-        rows = torch.from_numpy(rnd["rows"])
-        if self.device.type == "cuda":
-            rows = rows.pin_memory()
-        rows = rows.to(self.device, non_blocking=True)
+            sh, j = self._shard_of(i)
+            for plane in sh.dpb:
+                plane[j, slot].zero_()
         args = dict(width_mbs=w_mbs, height_mbs=h_mbs, caps=rnd["caps"],
                     intra_wavefront=rnd["wavefront"])
-        if rnd["n_batched"]:
-            self._run_round(rows[:self.n], args)
-        for row, (i, pcm, spiral) in zip(rows[self.n:], rnd["eager"]):
-            if pcm is not None:
-                pcm = tuple(torch.from_numpy(p).to(self.device) for p in
-                            build_pcm_tensors(w_mbs * h_mbs, *pcm))
-            _frame_decode_body(row, tuple(p[i] for p in self.dpb), pcm,
-                               **args, spiral=spiral)
-            STATS["eager_frames"] += 1
+        for sh in self._shards:
+            # the shard's rows and those of its eager streams, after the
+            # batch, in one host-to-device copy
+            eager = [(k, e) for k, e in enumerate(rnd["eager"])
+                     if sh.lo <= e[0] < sh.hi]
+            host = np.concatenate([rnd["rows"][sh.lo:sh.hi]] + [
+                rnd["rows"][self.n + k][None] for k, _ in eager])
+            rows = torch.from_numpy(host)
+            if sh.device.type == "cuda":
+                rows = rows.pin_memory()
+            rows = rows.to(sh.device, non_blocking=True)
+            with _on(sh.device):
+                if rnd["n_batched"]:
+                    self._run_round(sh, rows[:sh.hi - sh.lo], args)
+                for row, (_, (i, pcm, spiral)) in zip(
+                        rows[sh.hi - sh.lo:], eager):
+                    if pcm is not None:
+                        pcm = tuple(torch.from_numpy(p).to(sh.device)
+                                    for p in build_pcm_tensors(
+                                        w_mbs * h_mbs, *pcm))
+                    _frame_decode_body(
+                        row, tuple(p[i - sh.lo] for p in sh.dpb), pcm,
+                        **args, spiral=spiral)
+                    count("eager_frames")
 
     def step(self) -> int:
         """Advance every live stream to its next picture, then run one
@@ -320,4 +379,5 @@ class MultiStreamDecoder:
         """(y, cb, cr) of picture out_idx of stream stream_idx, copied out
         of its ring slot as it stands."""
         o = self.outputs[stream_idx][out_idx]
-        return tuple(p[stream_idx, o["slot"]].clone() for p in self.dpb)
+        sh, j = self._shard_of(stream_idx)
+        return tuple(p[j, o["slot"]].clone() for p in sh.dpb)

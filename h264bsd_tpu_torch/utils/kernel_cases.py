@@ -15,7 +15,9 @@ import numpy as np
 import torch
 
 from ..models.state import from_numpy
+from ..ops.cuda_mc import stripe_exc_ids
 from ..ops.deblock import deblock_params
+from ..parallel.rowshard import deblock_stripe_args, intra_stripe_args
 
 
 def deblock_case(seed, w_mbs, h_mbs) -> dict:
@@ -115,6 +117,51 @@ def intra_inputs(case, device):
     intra kernels' wrappers (width_mbs and height_mbs follow)."""
     t = from_numpy(case, device)
     return (t["y"], t["cb"], t["cr"], *(t[k] for k in INTRA_STATE))
+
+
+def _stripe_of(case, w_mbs, first_row, rows, device):
+    """The case on `device` cut to the stripe of `rows` MB rows from MB
+    row first_row: its per-MB arrays, and its planes' rows."""
+    t = from_numpy(case, device)
+    n = t["mb_class"].shape[0]
+    cut = slice(first_row * w_mbs, (first_row + rows) * w_mbs)
+    stripe = {k: v[cut] if v.shape[0] == n else v for k, v in t.items()}
+    planes = tuple(t[k][first_row * s:(first_row + rows) * s]
+                   for k, s in (("y", 16), ("cb", 8), ("cr", 8)))
+    return t, stripe, planes
+
+
+def intra_stripe_inputs(case, w_mbs, first_row, rows, device):
+    """K2's arguments on the row-sharded path's halo-extended stripe
+    (parallel.rowshard.intra_stripe_args; width_mbs and rows + 1 follow):
+    the intra case's stripe of `rows` MB rows from MB row first_row below
+    one dummy MB row whose bottom pel rows hold the frame's rows just
+    above the stripe, the halo (none for the top stripe)."""
+    t, stripe, planes = _stripe_of(case, w_mbs, first_row, rows, device)
+    halo = None if first_row == 0 else tuple(
+        t[k][first_row * s - 1] for k, s in (("y", 16), ("cb", 8),
+                                             ("cr", 8)))
+    return intra_stripe_args(stripe, stripe["resid_luma"],
+                             stripe["resid_chroma"], planes, halo, w_mbs)
+
+
+def deblock_stripe_inputs(case, w_mbs, first_row, rows, device):
+    """K1's arguments on the row-sharded path's extended stripe
+    (parallel.rowshard.deblock_stripe_args; width_mbs and rows + 1
+    follow): the deblocking case's stripe of `rows` MB rows from MB row
+    first_row below the frame's MB row above it with deblocking disabled,
+    the bS and thresholds computed on that, and the frame's 4 luma / 2
+    chroma pel rows above the stripe in the extended planes (none for the
+    top stripe, whose first row gets no top edge)."""
+    t, stripe, planes = _stripe_of(case, w_mbs, first_row, rows, device)
+    above = halo4 = None
+    if first_row:
+        row = slice((first_row - 1) * w_mbs, first_row * w_mbs)
+        above = {k: t[k][row] for k in DEBLOCK_STATE}
+        halo4 = tuple(t[k][first_row * s - h:first_row * s]
+                      for k, s, h in (("y", 16, 4), ("cb", 8, 2),
+                                      ("cr", 8, 2)))
+    return deblock_stripe_args(stripe, above, planes, halo4, w_mbs, rows)
 
 
 def padded_intra_ids(case, pad, device, shuffle_seed=None) -> torch.Tensor:
@@ -403,3 +450,23 @@ def case_inputs(case, names, device):
     """The case's arrays `names` as tensors on `device`, in that order."""
     t = from_numpy(case, device)
     return tuple(t[k] for k in names)
+
+
+def mc_recon_stripe(args, w_mbs, first_row, rows):
+    """mc_recon_cuda's arguments (mc_recon_inputs) cut to the stripe of
+    `rows` MB rows from MB row first_row, over the same whole-frame ring:
+    the stripe at mb_row_offset=first_row predicts what the frame does
+    there."""
+    cut = slice(first_row * w_mbs, (first_row + rows) * w_mbs)
+    *ring, mv, ref, cls, res_l, res_c, pcm = args
+    return (*ring, mv[cut], ref[cut], cls[cut], res_l[cut], res_c[cut],
+            None if pcm is None else tuple(p[cut] for p in pcm))
+
+
+def mc_stripe(args, w_mbs, first_row, rows):
+    """mc_predict_grids' arguments (mc_inputs) cut to a stripe, as
+    mc_recon_stripe, the exception ids rebased onto it."""
+    cut = slice(first_row * w_mbs, (first_row + rows) * w_mbs)
+    *ring, mv, ref, exc = args
+    return (*ring, mv[cut], ref[cut],
+            stripe_exc_ids(exc, first_row * w_mbs, rows * w_mbs))

@@ -42,6 +42,8 @@ from h264bsd_tpu_torch.utils.kernel_cases import (IDCT_STATE,
                                                   mc_case, mc_inputs,
                                                   mc_recon_case,
                                                   mc_recon_inputs,
+                                                  mc_recon_stripe,
+                                                  mc_stripe,
                                                   padded_intra_ids,
                                                   residual_case,
                                                   residual_edge_case)
@@ -528,3 +530,140 @@ def test_multistream_graph_replays_match_the_eager_rounds(dev):
     assert rounds == 8
     assert card["graph_replays"] > 0
     assert card["eager_frames"] > 0
+
+
+# ---- the MB-row offset of the MC kernels, and the multi-device decoders on
+# a device list that repeats the card
+
+@pytest.mark.parametrize("first_row,rows", [(0, 17), (3, 5), (51, 17)])
+def test_mc_recon_kernel_with_a_row_offset(dev, first_row, rows):
+    """A stripe of `rows` MB rows at MB row first_row of 1080p, predicted
+    from the whole reference frames: the plain version's bytes, and the
+    whole frame's rows there; MVs cross the frame's edges. A stripe of a
+    taller ring launches mc_recon_stripe_kernel, the whole frame
+    mc_recon_kernel."""
+    dims = (120, 68)
+    args = mc_recon_inputs(mc_recon_case(6, *dims, 4, 0.25, pcm=True,
+                                         motion="edge"), dev)
+    stripe = mc_recon_stripe(args, dims[0], first_row, rows)
+    before = dict(_kernels.LAUNCHES)
+    got = mc_recon_cuda(*stripe, dims[0], rows, mb_row_offset=first_row)
+    assert _kernels.LAUNCHES["mc_recon_stripe"] == \
+        before["mc_recon_stripe"] + 1
+    assert _kernels.LAUNCHES["mc_recon"] == before["mc_recon"]
+    _assert_planes_equal(got, mc_recon_plain(*stripe, dims[0], rows,
+                                             mb_row_offset=first_row))
+    whole = mc_recon_cuda(*args, *dims)
+    assert _kernels.LAUNCHES["mc_recon"] == before["mc_recon"] + 1
+    for g, f, s in zip(got, whole, (16, 8, 8)):
+        assert torch.equal(g, f[first_row * s:(first_row + rows) * s])
+
+
+@pytest.mark.parametrize("first_row", [0, 3])
+def test_mc_predict_grids_with_a_row_offset(dev, first_row):
+    """mc_uniform and mc_exception (the TPU kernels' signature) on a
+    stripe of 5 MB rows of a 20x12 frame at MB row first_row, the
+    exception ids rebased onto the stripe: the plain versions' bytes."""
+    dims, rows = (20, 12), 5
+    args = mc_stripe(mc_inputs(mc_case(7, *dims, 4, 0.25), dev), dims[0],
+                     first_row, rows)
+    got = mc_uniform_cuda(*args[:5], dims[0], rows, mb_row_offset=first_row)
+    want = mc_uniform_plain(*args[:5], dims[0], rows,
+                            mb_row_offset=first_row)
+    _assert_planes_equal(got, want)
+    got = mc_exception_cuda(*got, *args, dims[0], rows,
+                            mb_row_offset=first_row)
+    want = mc_exception_plain(*want, *args, dims[0], rows,
+                              mb_row_offset=first_row)
+    _assert_planes_equal(got, want)
+
+
+def _card_and_cpu(dev, n):
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+    return Mesh([dev] * n, ("row",)), Mesh(["cpu"] * n, ("row",))
+
+
+@pytest.mark.parametrize("kind", ["blob", "dense"])
+def test_row_sharded_step_on_the_card(dev, kind):
+    """The 6x4 motion stream through the row-sharded step on ["cuda"] * 2
+    and on two CPU positions, frame by frame: the same rings."""
+    from h264bsd_tpu_torch.frontend import binding as fe
+    from h264bsd_tpu_torch.models.decoder import Decoder
+    from h264bsd_tpu_torch.models.state import new_ring
+    from h264bsd_tpu_torch.ops.reconstruct import build_pcm_tensors
+    from h264bsd_tpu_torch.parallel.rowshard import (
+        make_row_sharded_blob_step, make_row_sharded_step)
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+
+    data = make_motion_stream(6, 4, 4, seed=0)
+    meshes = _card_and_cpu(dev, 2)
+    dec = Decoder(device="cpu")
+    rings = None
+    pos = frames = 0
+    before = dict(_kernels.LAUNCHES)
+    while pos < len(data):
+        status, read = dec._fe.decode(data, 0, pos)
+        pos += read
+        if status != fe.PIC_RDY:
+            continue
+        prep = dec._prepare()
+        g, n = prep["geom"], prep["n_mbs"]
+        if rings is None:
+            rings = [tuple(m.replicate(p) for p in new_ring(
+                g["dpb_slots"], 4, 6, "cpu")) for m in meshes]
+        pcm = build_pcm_tensors(n, *prep["ipcm"])
+        t = dec._fe.tensors(n)
+        t["pcm_y"], t["pcm_cb"], t["pcm_cr"] = pcm
+        for m, ring in zip(meshes, rings):
+            if kind == "blob":
+                make_row_sharded_blob_step(m, "row", 6, 4, prep["caps"])(
+                    prep["blob"], *map(torch.from_numpy, pcm), *ring,
+                    prep["info"]["slot"])
+            else:
+                make_row_sharded_step(m, "row", 6, 4)(
+                    t, *ring, prep["info"]["slot"])
+        for card, cpu in zip(*rings):
+            for a, b in zip(card, cpu):
+                assert torch.equal(a.cpu(), b), f"frame {frames}"
+        while dec._fe.next_output() is not None:
+            pass
+        frames += 1
+    dec.close()
+    assert frames == 4
+    # every stripe through mc_recon_stripe_kernel, each frame's blocks
+    # through K9 on the dense step
+    after = dict(_kernels.LAUNCHES)
+    assert after["mc_recon_stripe"] == before["mc_recon_stripe"] + 2 * 4
+    assert after["mc_recon"] == before["mc_recon"]
+    if kind == "dense":
+        assert after["idct_blocks"] == before["idct_blocks"] + 2 * 4
+
+
+def test_framepipe_and_gop_on_the_card(dev):
+    """Framepipe over ["cuda"] * 2 (a graph per position, the hand-off
+    between the positions' rings) on an IPPP stream and on one whose first
+    slice is corrupted (the eviction), and GOP-parallel decode with two
+    workers on the card: the CPU decoder's pictures."""
+    from h264bsd_tpu_torch.models.decoder import decode_stream
+    from h264bsd_tpu_torch.parallel.framepipe import decode_stream_framepipe
+    from h264bsd_tpu_torch.parallel.gop import (_nal_positions,
+                                                decode_stream_gop_parallel)
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+    from h264bsd_tpu_torch.utils import streamgen
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+
+    ippp = streamgen.make_ippp_stream(4, 4, 6)
+    bad = bytearray(ippp)
+    first = next(n for n in _nal_positions(ippp) if n[2] in (1, 5))
+    nxt = next(n for n in _nal_positions(ippp) if n[1] > first[0])
+    bad[first[0] + int((nxt[1] - first[0]) * 0.8)] ^= 0xFF
+    for data in (ippp, bytes(bad)):
+        want = [p.yuv_bytes() for p in decode_stream(data, device="cpu")]
+        got = [p.yuv_bytes() for p in decode_stream_framepipe(
+            data, Mesh([dev] * 2, ("pipe",)), "pipe")]
+        assert got == want
+    data = b"".join(make_motion_stream(6, 4, 3, seed=s) for s in range(3))
+    want = [p.yuv_bytes() for p in decode_stream(data, device="cpu")]
+    got = [p.yuv_bytes() for p in decode_stream_gop_parallel(
+        data, devices=[dev], threads=2)]
+    assert got == want

@@ -5,7 +5,8 @@ per round. The streams share one geometry (4x4 MBs): an IPPP stream, a
 shorter one (it drains first and then sends the empty frame), an I_PCM
 stream (eager with pcm=), a lost IDR slice (the spiral concealment:
 evicted from the batch) and a lost P slice (concealed from a reference
-inside the batch)."""
+inside the batch). With a mesh of two CPU positions the same streams
+give the same pictures, round by round."""
 
 import numpy as np
 import pytest
@@ -15,6 +16,7 @@ from h264bsd_tpu.parallel.multistream import \
     MultiStreamDecoder as JMultiStreamDecoder
 from h264bsd_tpu.utils import streamgen
 from h264bsd_tpu_torch.models.decoder import ROW_SCALARS, decode_stream
+from h264bsd_tpu_torch.parallel.mesh import Mesh
 from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
 from h264bsd_tpu_torch.utils.recorded import drop_nal
 
@@ -162,3 +164,35 @@ def test_streams_of_another_geometry_raise():
             dec.step()
     finally:
         dec.close()
+
+
+def _rounds(dec):
+    """Step dec to its end: every round's new pictures per stream, read
+    from the ring in the round that released them."""
+    seen = [[] for _ in dec.outputs]
+    rounds = []
+    try:
+        while dec.step():
+            rounds.append(_take_new(dec, seen))
+    finally:
+        dec.close()
+    return rounds, dec.outputs
+
+
+def test_a_mesh_of_two_positions_matches_one_device():
+    """Four streams sharded over two positions (two CPU devices of a
+    Mesh): the pcm and lost-IDR streams, both eager, on position 1. Every
+    round's pictures and the outputs equal the decoder without a mesh."""
+    streams = _streams()[:4]
+    want = _rounds(MultiStreamDecoder(streams, device="cpu"))
+    mesh = Mesh(["cpu"] * 2, ("stream",))
+    dec = MultiStreamDecoder(streams, mesh=mesh, stream_axis="stream")
+    assert [sh.device.type for sh in dec._shards] == ["cpu", "cpu"]
+    got = _rounds(dec)
+    assert got == want
+    assert len(dec.dpb) == 2 and dec.dpb[0][0].shape[0] == 2
+
+
+def test_a_mesh_needs_a_divisible_stream_count():
+    with pytest.raises(ValueError, match="not divisible"):
+        MultiStreamDecoder(_streams(), mesh=Mesh(["cpu"] * 2, ("stream",)))
