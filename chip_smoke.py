@@ -4,7 +4,8 @@
 Builds the host front-end (g++) and the CUDA kernels (nvcc) from the
 sources in this checkout, holds each kernel byte-equal to its plain
 PyTorch version on the card (K1 and K2 also on the row-sharded path's
-extended stripes, K9 on the dense row-sharded step's stripe blocks; the
+extended stripes, K9 on the dense row-sharded step's stripe blocks and
+on the dense frame_step's whole 1080p P picture, 195,840 blocks; the
 dependency-driven K1, K2 and K7 and the MC stage mc_recon, and its
 stripe kernel at MB-row offset 34 of 1080p, also over 50 CUDA-graph
 replays on fresh planes, a race check), decodes all-intra,
@@ -21,7 +22,12 @@ whose I_PCM and spiral-concealed frames run eagerly after the replay
 on device lists that repeat the one card (GOP-parallel decode with 1
 and 2 workers, the row-sharded blob and dense steps at 2 and 4 stripes,
 framepipe at 2 and 4 replicas and its eviction, MultiStreamDecoder
-sharded over 2 positions), and checks every picture's
+sharded over 2 positions), the entry hooks (entry_fn_check, the dense
+frame_step of models/entry.py over 1080p IPPP, motion and all-I frames
+and the 2x68 strip, run_multichip_dryrun on 2 and 4 positions), the CLI
+(a subprocess dumping 1080p IPPP, then --rgba and --render against the
+CPU) and bench_torch.py (30 s of timed passes per bench stream, its JSON
+lines printed), and checks every picture's
 checksum, and the SEI messages, against the values the JAX package
 recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written
 by tools/record_torch_port_checksums.py) and that no decode launches the
@@ -848,6 +854,212 @@ def multistream_mesh_phase(recorded_stream, long_streams, launches):
             "long_capture_ms": long_stats["capture_ms"]}
 
 
+# the entry phase's streams: IPPP and motion 1080p (K9, mc_recon, K2 on
+# the motion stream's intra MBs, K1), all-I 1080p (K7) and the 2x68
+# strip (K8), through the dense frame_step; the kernels each must launch
+ENTRY_STREAMS = ("ippp_1080p", "motion_1080p", "intra_1080p", "ippp_2x68")
+ENTRY_KERNELS = ("idct_blocks", "mc_recon", "intra_list", "intra_wf",
+                 "deblock_wf", "deblock_raster")
+# the kernels each multi-device dry run must launch: the dense stripes
+# (K9, the stripe MC kernel), the blob stripes and the main path's frame
+# body (residual stage, mc_recon), K2 and K1 on every path
+DRYRUN_KERNELS = ("idct_blocks", "mc_recon_stripe", "mc_recon",
+                  "residual_sparse", "intra_list", "deblock_wf")
+
+
+def entry_decode(data):
+    """Decode `data` frame by frame with models/entry.frame_step on the
+    front-end's dense tensors (entry.dense_frames) on the card; returns
+    the checksums of its pictures in display order (each taken on the
+    card from its ring slot when the front-end releases it, read back
+    once), the frames decoded and the seconds of the frame_step calls,
+    each to the end of its device work."""
+    from h264bsd_tpu_torch.models.decoder import frame_checksum_device
+    from h264bsd_tpu_torch.models.entry import dense_frames, frame_step
+    from h264bsd_tpu_torch.models.state import new_ring
+
+    ring, shape, sums, frames, step_s = None, None, [], 0, 0.0
+    for t, slot, g, released in dense_frames(data):
+        w, h = g["width_mbs"], g["height_mbs"]
+        if (g["dpb_slots"], h, w) != shape:
+            shape = (g["dpb_slots"], h, w)
+            ring = new_ring(*shape, CARD)
+        t0 = time.perf_counter()
+        frame_step(t, *ring, slot, w, h)
+        torch.cuda.synchronize()
+        step_s += time.perf_counter() - t0
+        frames += 1
+        sums += [frame_checksum_device(*(p[s] for p in ring), 384 * w * h)
+                 for s in released]
+    return torch.stack(sums).cpu().tolist(), frames, step_s
+
+
+def entry_phase(recorded_stream, launches):
+    """entry_fn_check() on the card against entry_fn_and_args on the CPU;
+    then the dense frame_step on ENTRY_STREAMS, every picture's checksum
+    against the recorded one, ms per frame and launches per frame; fails
+    unless each of ENTRY_KERNELS launched."""
+    from h264bsd_tpu_torch.models.entry import (entry_fn_and_args,
+                                                entry_fn_check)
+
+    card, _, total, _ = counted(entry_fn_check)
+    fn, args = entry_fn_and_args(device="cpu")
+    if not all(torch.equal(c.cpu(), w) for c, w in zip(card, fn(*args))):
+        raise AssertionError("entry: entry_fn_check on the card differs "
+                             "from entry_fn_and_args on the CPU")
+    rec = {"entry_fn_check": "card equals cpu"}
+    frames_all = k9_all = 0
+    for name in ENTRY_STREAMS:
+        e, data = recorded_stream(name)
+        (sums, frames, step_s), _, counts, _ = counted(
+            lambda: entry_decode(data))
+        if sums != e["checksums"]:
+            raise AssertionError(f"entry {name}: frame_step checksums {sums} "
+                                 f"!= recorded {e['checksums']}")
+        frames_all += frames
+        k9_all += counts["idct_blocks"]
+        for k, v in counts.items():
+            total[k] += v
+        rec[name] = {"frames": frames, "pictures": len(sums),
+                     "ms_per_frame": 1e3 * step_s / frames,
+                     "launches_per_frame": {k: v / frames
+                                            for k, v in counts.items() if v}}
+    need_launched("entry", total, ENTRY_KERNELS)
+    for k, v in total.items():
+        launches[k] += v
+    return {"checksums_ok": True, **rec, "launches": total}, \
+        k9_all / frames_all
+
+
+def multichip_phase(launches):
+    """run_multichip_dryrun(2) and (4) on ["cuda:0"] * n: every phase
+    byte-compared with the single-device result inside it."""
+    from h264bsd_tpu_torch.models.entry import run_multichip_dryrun
+
+    rec = {}
+    for n in (2, 4):
+        _, wall, counts, stats = counted(
+            lambda: run_multichip_dryrun(n, devices=[CARD] * n))
+        need_launched(f"multichip_dryrun({n})", counts, DRYRUN_KERNELS)
+        for k, v in counts.items():
+            launches[k] += v
+        rec[f"devices_{n}"] = {"wall_s": wall, **stats,
+                               "launches": {k: v for k, v in counts.items()
+                                            if v}}
+    return {"ok": True, **rec}
+
+
+def cli_phase(recorded_stream, launches):
+    """The CLI (python -m h264bsd_tpu_torch.cli) on the ippp_1080p file
+    with -o, in a subprocess: the dump's per-picture checksums, over the
+    cropped prefix as it writes it, against decode_stream's pictures
+    checksummed on the card (and the recorded values), and its fps line;
+    then -o, --rgba and --render in this process on a 4x4 stream, on the
+    card against the CPU, byte for byte."""
+    import contextlib
+    import io
+    import tempfile
+    from pathlib import Path
+
+    from h264bsd_tpu_torch import cli
+    from h264bsd_tpu_torch.models.decoder import (decode_stream,
+                                                  frame_checksum_device,
+                                                  frame_checksum_host)
+    from h264bsd_tpu_torch.utils import streamgen
+
+    e, data = recorded_stream("ippp_1080p")
+    rec = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        src = tmp / "ippp_1080p.h264"
+        src.write_bytes(data)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "h264bsd_tpu_torch.cli", "-o",
+             str(tmp / "out.yuv"), "--device", CARD, str(src)],
+            capture_output=True,
+            text=True, timeout=600,
+            cwd=os.path.dirname(os.path.abspath(__file__)))
+        wall = time.perf_counter() - t0
+        if proc.returncode:
+            raise AssertionError(f"cli: exit code {proc.returncode}: "
+                                 f"{proc.stderr[-2000:]}")
+        done = [ln for ln in proc.stdout.splitlines()
+                if ln.startswith("Test file complete.") and " fps (" in ln]
+        if len(done) != 1:
+            raise AssertionError(f"cli: no fps line in {proc.stdout!r}")
+        pics, _, counts, _ = counted(lambda: list(decode_stream(
+            data, device=CARD)))
+        for k, v in counts.items():
+            launches[k] += v
+        sizes = [p.crop[1] * p.crop[3] * 3 // 2 for p in pics]
+        want = torch.stack([frame_checksum_device(*p.planes, n) for p, n in
+                            zip(pics, sizes)]).cpu().tolist()
+        dump = (tmp / "out.yuv").read_bytes()
+        if len(dump) != sum(sizes):
+            raise AssertionError(f"cli: dump of {len(dump)} bytes, "
+                                 f"expected {sum(sizes)}")
+        offsets = np.cumsum([0] + sizes)
+        got = [frame_checksum_host(dump[a:b])
+               for a, b in zip(offsets[:-1], offsets[1:])]
+        # the stream is not cropped: the dump holds whole pictures
+        if not got == want == e["checksums"]:
+            raise AssertionError(f"cli: dump checksums {got} != the card's "
+                                 f"{want} (recorded {e['checksums']})")
+        rec["ippp_1080p"] = {"pictures": len(got), "subprocess_s": wall,
+                             "fps_line": done[0]}
+        small = tmp / "ippp_4x4.h264"
+        small.write_bytes(streamgen.make_ippp_stream(4, 4, 4))
+        files = {}
+        for tag, device in (("card", CARD), ("cpu", "cpu")):
+            d = tmp / tag
+            d.mkdir()
+            argv = ["-o", str(d / "o.yuv"), "--rgba", str(d / "o.rgba"),
+                    "--render", str(d / "ppm"), "--device", device,
+                    str(small)]
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc, _, counts, _ = counted(lambda: cli.main(argv))
+            if tag == "card":
+                for k, v in counts.items():
+                    launches[k] += v
+            files[tag] = {str(p.relative_to(d)): p.read_bytes()
+                          for p in sorted(d.rglob("*")) if p.is_file()}
+            if rc:
+                raise AssertionError(f"cli on {device}: exit code {rc}")
+        if files["card"] != files["cpu"] or len(files["card"]) != 2 + 4:
+            raise AssertionError("cli: -o, --rgba and --render on the card "
+                                 "differ from the CPU's")
+        rec["ippp_4x4"] = {"files": sorted(files["card"])}
+    return {"ok": True, **rec}
+
+
+def bench_phase(launches):
+    """bench_torch.py's main with a 30 s budget per stream on both bench
+    streams; its JSON lines, printed as they are."""
+    import contextlib
+    import io
+
+    import bench_torch
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, _, counts, _ = counted(lambda: bench_torch.main(
+            ["--budget", "30"]))
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    recs = [json.loads(line) for line in lines]
+    if rc or len(recs) != len(bench_torch.STREAMS) or not all(
+            r["bit_exact"] and r["value"] for r in recs):
+        raise AssertionError(f"bench: exit code {rc}, records {recs}")
+    for k, v in counts.items():
+        launches[k] += v
+    return {"streams": [r["stream"] for r in recs],
+            "fps": [r["value"] for r in recs],
+            "fps_all": [r["fps_all"] for r in recs],
+            "launches": {k: v for k, v in counts.items() if v}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -906,6 +1118,56 @@ def main() -> int:
     emit({"phase": "env", "gpu": smi, "torch": torch.__version__,
           "cuda": torch.version.cuda, "frontend_build_s": t1 - t0,
           "kernel_build_s": t2 - t1})
+
+    # the recorded streams (the JAX package's checksums) and their frames
+    ref = json.loads(open("h264bsd_tpu_torch/testdata/"
+                          "reference_checksums.json").read())
+    launches = {k: 0 for k in KERNELS}
+    per_frame = {}
+
+    def recorded_stream(name):
+        e = ref[name]
+        data = make_recorded_stream(e)
+        if hashlib.sha256(data).hexdigest() != e["sha256"]:
+            raise AssertionError(f"{name}: stream bytes differ from the "
+                                 "recorded stream")
+        return e, data
+
+    def frame_at(name, k):
+        """A decoder stopped at frame k of stream `name`, and the frame's
+        Decoder._prepare()."""
+        data = recorded_stream(name)[1]
+        dec = Decoder()
+        pos = frames = 0
+        while True:
+            status, read = dec._fe.decode(data, 0, pos)
+            pos += read
+            if status == fe.PIC_RDY:
+                prep = dec._prepare()
+                while dec._fe.next_output() is not None:
+                    pass
+                if frames == k:
+                    return dec, prep
+                frames += 1
+
+    def dense_blocks(name, k, first, rows):
+        """K9's inputs on MB rows first..first+rows-1 of frame k of stream
+        `name`, as residual_blocks makes them from the front-end's dense
+        tensors (the dense frame_step's and the row-sharded dense step's
+        blocks)."""
+        dec, prep = frame_at(name, k)
+        w = prep["w_mbs"]
+        t = dec._fe.tensors(prep["n_mbs"])
+        dec.close()
+        cut = slice(first * w, (first + rows) * w)
+        f = {field: tensor_from_numpy(t[field][cut], dev)
+             for field in ("coeff", "luma_dc", "chroma_dc", "qp_y",
+                           "chroma_qp_offset", "nnz", "nnz_dc",
+                           "mb_class")}
+        return residual_blocks(
+            f["coeff"], f["luma_dc"], f["chroma_dc"], f["qp_y"],
+            f["chroma_qp_offset"], f["nnz"], f["nnz_dc"],
+            f["mb_class"] == 4)[:4]
 
     # ---- kernels: each CUDA kernel byte-equal to its plain version
     def plain_intra_list(y, cb, cr, *rest, ids):
@@ -1055,6 +1317,13 @@ def main() -> int:
         check("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
               lambda *a: (idct_blocks_plain(*a[:4]),),
               kc.case_inputs(kc.idct_case(n, n), kc.IDCT_STATE, dev), (n,))
+    # K9 on the dense frame_step's blocks: the whole first P picture of
+    # the 1080p motion stream (8160 MBs x 24, 195,840 blocks)
+    dense_k9 = dense_blocks("motion_1080p", 1, 0, 68)
+    n = dense_k9[0].shape[0]
+    check("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+          lambda *a: (idct_blocks_plain(*a[:4]),), dense_k9, (n,))
+    checks[-1]["case"] = "motion_1080p frame 1, dense (frame_step)"
     for seed, dims in enumerate([(6, 4), (20, 12), (120, 68)]):
         n = dims[0] * dims[1]
         check("residual_sparse",
@@ -1112,19 +1381,6 @@ def main() -> int:
           "launches": dict(_kernels.LAUNCHES)})
 
     # ---- decodes: checksums against the JAX package's recorded values
-    ref = json.loads(open("h264bsd_tpu_torch/testdata/"
-                          "reference_checksums.json").read())
-    launches = {k: 0 for k in KERNELS}
-    per_frame = {}
-
-    def recorded_stream(name):
-        e = ref[name]
-        data = make_recorded_stream(e)
-        if hashlib.sha256(data).hexdigest() != e["sha256"]:
-            raise AssertionError(f"{name}: stream bytes differ from the "
-                                 "recorded stream")
-        return e, data
-
     def drive(name, pictures_of):
         """Decode stream `name` with pictures_of(data) (an iterable of
         OutputPicture), the counts set to 0 just before and read just
@@ -1263,6 +1519,13 @@ def main() -> int:
         recorded_stream, long_streams[1], launches)})
     emit({"phase": "multistream_mesh", **multistream_mesh_phase(
         recorded_stream, long_streams, launches)})
+
+    # the entry hooks, the dense frame_step, the CLI and the bench script
+    rec, dense_k9_per_frame = entry_phase(recorded_stream, launches)
+    emit({"phase": "entry", **rec})
+    emit({"phase": "multichip_dryrun", **multichip_phase(launches)})
+    emit({"phase": "cli", **cli_phase(recorded_stream, launches)})
+    emit({"phase": "bench", **bench_phase(launches)})
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1356,23 +1619,6 @@ def main() -> int:
         byt = 4 * ids.numel() + 2 * levels.numel() + 4 * n * (2 + 24) \
             + 4 * 384 * n
         return byt, blocks * OPS_IDCT_BLOCK + 384 * n * OPS_DC_PEL
-
-    def frame_at(name, k):
-        """A decoder stopped at frame k of stream `name`, and the frame's
-        Decoder._prepare()."""
-        data = recorded_stream(name)[1]
-        dec = Decoder()
-        pos = frames = 0
-        while True:
-            status, read = dec._fe.decode(data, 0, pos)
-            pos += read
-            if status == fe.PIC_RDY:
-                prep = dec._prepare()
-                while dec._fe.next_output() is not None:
-                    pass
-                if frames == k:
-                    return dec, prep
-                frames += 1
 
     def frame_state(name, k):
         """Frame k of stream `name` as the main path unpacks it on the
@@ -1581,23 +1827,7 @@ def main() -> int:
     # K9 at the dense row-sharded step's sizes: the blocks of a stripe of
     # 34 and of 17 MB rows (2 and 4 positions; 97,920 and 48,960 blocks)
     # of the first two frames of the 1080p IPPP and motion streams (those
-    # the rowshard phase's dense step decodes), as residual_blocks makes
-    # them from the front-end's dense tensors
-    def dense_blocks(name, k, first, rows):
-        dec, prep = frame_at(name, k)
-        w = prep["w_mbs"]
-        t = dec._fe.tensors(prep["n_mbs"])
-        dec.close()
-        cut = slice(first * w, (first + rows) * w)
-        f = {field: tensor_from_numpy(t[field][cut], dev)
-             for field in ("coeff", "luma_dc", "chroma_dc", "qp_y",
-                           "chroma_qp_offset", "nnz", "nnz_dc",
-                           "mb_class")}
-        return residual_blocks(
-            f["coeff"], f["luma_dc"], f["chroma_dc"], f["qp_y"],
-            f["chroma_qp_offset"], f["nnz"], f["nnz_dc"],
-            f["mb_class"] == 4)[:4]
-
+    # the rowshard phase's dense step decodes)
     def idct_bound(n):
         return (n * (16 * 4 * 2 + 8) + n * 64, n * OPS_IDCT_BLOCK)
 
@@ -1623,6 +1853,14 @@ def main() -> int:
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
                 idct_bound(n), 1, 5, True)
+    # the dense frame_step's blocks: the whole P picture (195,840 blocks),
+    # one launch per frame on that path
+    n = dense_k9[0].shape[0]
+    time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
+                lambda *a: (idct_blocks_plain(*a[:4]),), dense_k9, (n,),
+                idct_bound(n), 1, 5, True,
+                "motion_1080p frame 1, dense (frame_step)")
+    extra_rows[-1]["launches_per_frame"] = dense_k9_per_frame
     # the residual stage on the second picture (a P picture) of the 1080p
     # motion stream
     t, sids, slv, _, n = motion

@@ -5,5 +5,7 @@ frontend/csrc); the pixel stages run as PyTorch on the device with
 hand-written CUDA kernels (csrc/*.cu): deblocking, intra reconstruction,
 motion compensation and the residual transform, each frame replayed as
 a CUDA graph per frame shape. Entry points: models.decoder.Decoder,
-models.decoder.decode_stream and models.stream.StreamingDecoder.
+models.decoder.decode_stream and models.stream.StreamingDecoder; the
+CLI (python -m h264bsd_tpu_torch.cli) and the entry hooks of
+models/entry.py.
 """

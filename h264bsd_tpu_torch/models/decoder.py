@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from dataclasses import dataclass
 from functools import partial
 
@@ -37,15 +38,11 @@ from ..frontend import binding as fe
 from ..frontend.sei import parse_sei_rbsp
 from ..ops.conceal import conceal_picture
 from ..ops.cuda_deblock_wf import deblock_frame_wavefront
-from ..ops.reconstruct import build_pcm_tensors, reconstruct_frame_fast
+from ..ops.reconstruct import (WF_THRESH, build_pcm_tensors,
+                               reconstruct_frame_fast)
 from ..ops.unpack import compact_blob_words, unpack_blob, widen_words
-from .graphs import FrameGraph, count
+from .graphs import STATS, FrameGraph, count, reset_stats
 from .state import new_ring, tensor_from_numpy
-
-# intra-MB count above which a frame runs the anti-diagonal wavefront
-# intra kernel (K7) instead of the list kernel (K2); the JAX package's
-# threshold, so both take the same caps and blob shapes
-WF_THRESH = 2048
 
 # frames per windowed dispatch of decode_stream, and the DPB slot margin
 # it asks of the front-end (the JAX package's default window)
@@ -658,7 +655,7 @@ def pin_caps_for_stream(data: bytes, typical_pct: float = 75.0) -> dict:
 
 def decode_stream(data: bytes, max_pictures: int | None = None,
                   pipelined: bool = True, caps_pin: dict = None,
-                  device=None):
+                  device=None, decoder: Decoder = None):
     """Full posix-test-app decode loop (reference posix/test_h264bsd.c:
     146-177) on `device` (see Decoder). Yields OutputPicture in display
     order.
@@ -667,10 +664,19 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
     ahead on a worker thread, and consecutive compatible frames are
     grouped into windows of up to WINDOW frames, each decoded by
     Decoder._submit_window (one host-to-device copy, then one graph replay
-    per frame on the card)."""
-    # slot margin = window length, as the JAX package's decode_stream
-    # sets it, so both allocate the same ring slots
-    dec = Decoder(caps_pin=caps_pin, slot_margin=WINDOW, device=device)
+    per frame on the card).
+
+    decoder: decode with this Decoder, restarted (Decoder.restart), in
+    place of a new one (caps_pin and device are then its own): a decoder
+    that decoded a stream of the same geometry replays the CUDA graphs it
+    captured there, as benchmark_stream's timed passes do."""
+    if decoder is None:
+        # slot margin = window length, as the JAX package's decode_stream
+        # sets it, so both allocate the same ring slots
+        dec = Decoder(caps_pin=caps_pin, slot_margin=WINDOW, device=device)
+    else:
+        dec = decoder
+        dec.restart()
     if not pipelined:
         pos = 0
         n_out = 0
@@ -807,3 +813,104 @@ def frame_checksum_host(frame_bytes: bytes) -> int:
     w = (np.arange(x.size, dtype=np.uint32) * np.uint32(2654435761)) \
         + np.uint32(1)
     return int((x * w).sum(dtype=np.uint32))
+
+
+def frame_checksum_device(y, cb, cr, n_trunc: int) -> torch.Tensor:
+    """frame_checksum_host of the first n_trunc bytes of the planes'
+    uncropped YUV, as tensor ops on their device: a 0-d int64 tensor
+    holding the uint32 value. torch has no wrapping uint32 multiply, so
+    the products are taken in int64 (x <= 255 and w < 2**32, so each is
+    below 2**40 and a 1080p frame's sum of ~3.1 M below 2**62) and the
+    sum is reduced modulo 2**32."""
+    flat = torch.cat([y.reshape(-1), cb.reshape(-1), cr.reshape(-1)])
+    x = flat[:n_trunc].long()
+    w = (torch.arange(n_trunc, dtype=torch.int64, device=x.device)
+         * 2654435761 + 1) & 0xFFFFFFFF
+    return (x * w).sum() & 0xFFFFFFFF
+
+
+def benchmark_stream(data: bytes, want_checksums, repeats: int = 5,
+                     device=None, budget_s: float | None = None,
+                     n_trunc: int | None = None) -> dict:
+    """Decode `data` with decode_stream on `device` (see Decoder): first a
+    verification pass, whose per-picture checksums (frame_checksum_device
+    over each picture's first n_trunc bytes, the whole picture when None)
+    are computed on the device and read back once, against
+    want_checksums; then, only when every picture matched, `repeats`
+    timed passes, and more until they have taken budget_s seconds when
+    it is given. The verification pass takes the CUDA graph captures:
+    the timed passes decode with the same Decoder (decode_stream's
+    decoder=), restarted, and replay them. Each timed pass keeps its
+    pictures and ends in torch.cuda.synchronize() on the card; after its
+    clock stops, its pictures are checksummed on the device as the
+    verification pass's were, and a pass that differs ends the timing.
+
+    Returns {"bit_exact" (every pass matched), "pictures", "cold_fps" (the
+    verification pass, its captures and checksums included), "captures",
+    "capture_ms" (the verification pass's), "timed_captures" (the timed
+    passes'), "runs" (each timed pass's fps), "fps" (the best), "median",
+    "fps_all" (all the timed passes' pictures over all their seconds),
+    "timed_s"}; when a pass differs, "runs" is empty and "fps", "median"
+    and "fps_all" are None."""
+    dev = resolve_device(device)
+    dec = Decoder(caps_pin=pin_caps_for_stream(data), slot_margin=WINDOW,
+                  device=dev)
+    want = list(want_checksums)
+
+    def checksums(pics):
+        sums = [frame_checksum_device(*p.planes, n_trunc or sum(
+            q.numel() for q in p.planes)) for p in pics]
+        return torch.stack(sums).cpu().tolist() if sums else []
+
+    try:
+        reset_stats()
+        t0 = time.perf_counter()
+        got = checksums(decode_stream(data, decoder=dec))
+        cold_s = time.perf_counter() - t0
+        out = {"bit_exact": got == want, "pictures": len(got),
+               "cold_fps": len(got) / cold_s,
+               "captures": STATS["graph_captures"],
+               "capture_ms": STATS["capture_ms"]}
+        runs, n_all, timed_s = [], 0, 0.0
+        if out["bit_exact"]:
+            reset_stats()
+            while len(runs) < repeats or (budget_s is not None
+                                          and timed_s < budget_s):
+                t0 = time.perf_counter()
+                pics = list(decode_stream(data, decoder=dec))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                dt = time.perf_counter() - t0
+                if checksums(pics) != want:
+                    out["bit_exact"] = False
+                    out["failed_pass"] = len(runs)
+                    runs = []
+                    break
+                timed_s += dt
+                n_all += len(pics)
+                runs.append(len(pics) / dt)
+            out["timed_captures"] = STATS["graph_captures"]
+    finally:
+        dec.close()
+    out["runs"] = runs
+    out["fps"] = max(runs) if runs else None
+    out["median"] = float(np.median(runs)) if runs else None
+    out["fps_all"] = n_all / timed_s if runs else None
+    out["timed_s"] = timed_s
+    return out
+
+
+def benchmark_decode(stream_name: str, repeats: int = 5, device=None):
+    """Bench helper: decode a bundled stream of utils/golden (the
+    reference tree's test streams), returns (fps, bit_exact) as the JAX
+    package's benchmark_decode does: benchmark_stream against the
+    reference decoder's golden frames, checksummed over the truncated
+    frame the reference test app dumps; fps is None when a picture
+    differs."""
+    from ..utils import golden
+
+    data = golden.stream_path(stream_name).read_bytes()
+    goldens = golden.golden_frames(stream_name)
+    r = benchmark_stream(data, [frame_checksum_host(g) for g in goldens],
+                         repeats, device, n_trunc=len(goldens[0]))
+    return r["fps"], r["bit_exact"]

@@ -28,6 +28,14 @@ def tensor_from_numpy(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def as_tensor(x, device) -> torch.Tensor:
+    """A numpy array (tensor_from_numpy) or a tensor on `device`; a
+    tensor already there is returned as it is."""
+    if isinstance(x, np.ndarray):
+        return tensor_from_numpy(x, device)
+    return x.to(device)
+
+
 def from_numpy(arrays: dict, device) -> dict:
     """Each numpy array of `arrays` as a port tensor on `device` (see
     tensor_from_numpy); other values pass through."""

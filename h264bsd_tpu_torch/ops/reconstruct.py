@@ -1,11 +1,14 @@
 """Whole-frame reconstruction: residual + inter MC + I_PCM + intra
 prediction.
 
-Counterpart of the JAX package's ops/reconstruct.py (reconstruct_frame_fast
-:110, non-rowtile branch). The phase passes replace the reference's
-per-macroblock interleaved loop (h264bsd_slice_data.c:131-220):
+Counterpart of the JAX package's ops/reconstruct.py (reconstruct_frame
+:44, reconstruct_frame_fast :110, non-rowtile branch). The phase passes
+replace the reference's per-macroblock interleaved loop
+(h264bsd_slice_data.c:131-220):
 
-  1. sparse dequant+IDCT                      (K9, ops.cuda_transform)
+  1. dequant+IDCT: sparse (the residual stage, K9's body) on the main
+     path's blob, dense (K9 itself, ops.cuda_transform.idct_blocks) on
+     the front-end's dense per-MB tensors
   2. one pass (K3-K6, ops.cuda_mc.mc_recon_cuda) writes the planes:
      motion compensation from the DPB ring and the inter combine
      clip(pred + res) on P and P_Skip MBs (image.c:172), the I_PCM raw
@@ -18,12 +21,63 @@ The output planes are the pre-deblocking picture.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
+from ..models.state import as_tensor
 from .cuda_intra import intra_pass_cuda
 from .cuda_intra_wf import intra_pass_wavefront_cuda
 from .cuda_mc import mc_recon_cuda
-from .cuda_transform import residual_planes_sparse_cuda
+from .cuda_transform import (residual_planes_sparse_cuda,
+                             residual_transform_cuda)
+from .inter import mb_grid_to_plane, plane_to_mb_grid  # noqa: F401
+from .transform import mb_residual_planes
 from .unpack import unpack_meta
+
+# intra-MB count above which a frame runs the anti-diagonal wavefront
+# intra kernel (K7) instead of the list kernel (K2); the JAX package's
+# threshold (models/decoder.py:48), so both take the same caps and blob
+# shapes
+WF_THRESH = 2048
+
+
+def reconstruct_frame(tensors, dpb_y, dpb_cb, dpb_cr, width_mbs,
+                      height_mbs):
+    """Reconstruct the pre-deblock picture from the front-end's dense
+    per-MB tensors and the DPB ring (the JAX package's dense
+    reconstruct_frame).
+
+    tensors: the dict of FrontendDecoder.tensors plus pcm_y (nMB, 16, 16)
+    and pcm_cb / pcm_cr (nMB, 8, 8) uint8 I_PCM samples (zeros where
+    absent), numpy arrays or tensors. They go to the ring's device. The
+    intra stage is chosen by the main path's rule: K7 over the whole
+    frame above WF_THRESH intra MBs, else K2 on the raster list of the
+    intra MBs, both counted on the host copy of mb_class (a numpy
+    mb_class needs no device read). Returns (y, cb, cr, t): uint8 planes
+    and the frame's tensors on the device, for the deblocking filter."""
+    dev = dpb_y.device
+    cls = tensors["mb_class"]
+    cls = cls if isinstance(cls, np.ndarray) else cls.cpu().numpy()
+    intra_ids = np.flatnonzero((cls == 3) | (cls == 4))
+    t = {k: as_tensor(v, dev) for k, v in tensors.items()}
+    mb_class = t["mb_class"]
+    res, _ = residual_transform_cuda(
+        t["coeff"], t["luma_dc"], t["chroma_dc"], t["qp_y"],
+        t["chroma_qp_offset"], t["nnz"], t["nnz_dc"], mb_class == 4)
+    res_l, res_c = (r.contiguous() for r in mb_residual_planes(res))
+    y, cb, cr = mc_recon_cuda(dpb_y, dpb_cb, dpb_cr, t["mv"], t["ref_slot"],
+                              mb_class, res_l, res_c,
+                              (t["pcm_y"], t["pcm_cb"], t["pcm_cr"]),
+                              width_mbs, height_mbs)
+    intra_args = (mb_class, t["i4_modes"], t["i4_avail"], t["mb_avail"],
+                  t["i16_mode"], t["chroma_mode"], res_l, res_c, width_mbs,
+                  height_mbs)
+    if len(intra_ids) > WF_THRESH:
+        y, cb, cr = intra_pass_wavefront_cuda(y, cb, cr, *intra_args)
+    else:
+        y, cb, cr = intra_pass_cuda(
+            y, cb, cr, *intra_args,
+            intra_ids=torch.from_numpy(intra_ids.astype(np.int32)).to(dev))
+    return y, cb, cr, t
 
 
 def build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data):

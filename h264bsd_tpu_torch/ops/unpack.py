@@ -222,6 +222,18 @@ def _gather_index(n, caps, device):
             const(key + "pos", pos, device), lengths.tolist())
 
 
+def densify_residual(sparse_ids, sparse_levels, n_mbs):
+    """Scatter the sparse residual rows (ids mb*26 + b, levels (cap, 16))
+    into dense int32 (coeff (nMB, 24, 16), luma_dc (nMB, 16), chroma_dc
+    (nMB, 8)). Padding entries carry id >= n_mbs*26 and are dropped."""
+    buf = scatter_unique(
+        torch.zeros((n_mbs * 26, 16), dtype=torch.int32,
+                    device=sparse_ids.device),
+        sparse_ids.reshape(-1), sparse_levels, n_mbs * 26)
+    buf = buf.reshape(n_mbs, 26, 16)
+    return buf[:, :24], buf[:, 24], buf[:, 25, :8]
+
+
 def unpack_blob(words, n_mbs, single_cap, short_cap, full_cap, wide_cap,
                 exc_cap, intra_cap, stab_cap, sid_cap=0):
     """Split the compact blob (int64 words, see blob_words) into the

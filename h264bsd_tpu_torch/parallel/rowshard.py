@@ -45,7 +45,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.state import tensor_from_numpy
+from ..models.state import as_tensor
 from ..ops.cuda_deblock_wf import deblock_frame_wavefront_from_bs
 from ..ops.cuda_intra import intra_pass_cuda
 from ..ops.cuda_mc import mc_recon_cuda
@@ -137,12 +137,6 @@ def _stripe_rows(mesh, axis, height_mbs):
     return height_mbs // n_row
 
 
-def _as_tensor(x, device):
-    if isinstance(x, np.ndarray):
-        return tensor_from_numpy(x, device)
-    return x.to(device)
-
-
 def _stripe_step(t, dpbs, slot, *, width_mbs, stripe_rows, devices):
     """The dense step on one frame: t, the dense per-MB tensors of the
     whole frame (the front-end's tensors plus pcm_y/pcm_cb/pcm_cr, numpy
@@ -152,7 +146,7 @@ def _stripe_step(t, dpbs, slot, *, width_mbs, stripe_rows, devices):
     n_stripe = stripe_rows * width_mbs
     ts, res = [], []
     for k, dev in enumerate(devices):
-        tk = {f: _as_tensor(v[k * n_stripe:(k + 1) * n_stripe], dev)
+        tk = {f: as_tensor(v[k * n_stripe:(k + 1) * n_stripe], dev)
               for f, v in t.items()}
         r, _ = residual_transform_cuda(
             tk["coeff"], tk["luma_dc"], tk["chroma_dc"], tk["qp_y"],
@@ -278,7 +272,7 @@ def make_row_sharded_blob_step(mesh, axis, width_mbs, height_mbs, caps):
         res = residual_planes_sparse_cuda(
             sp_ids.reshape(-1), sp_lv, t["qp_y"], t["chroma_qp_offset"],
             t["nnz_dc"], t["mb_class"] == 4, n_mbs)
-        pcm = None if pcm[0] is None else tuple(_as_tensor(p, dev)
+        pcm = None if pcm[0] is None else tuple(as_tensor(p, dev)
                                                 for p in pcm)
         return t, res, pcm
 

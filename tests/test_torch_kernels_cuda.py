@@ -667,3 +667,56 @@ def test_framepipe_and_gop_on_the_card(dev):
     got = [p.yuv_bytes() for p in decode_stream_gop_parallel(
         data, devices=[dev], threads=2)]
     assert got == want
+
+
+@pytest.mark.parametrize("kind,dims,n_frames", [
+    ("intra", (40, 23), 2), ("motion", (40, 23), 3),
+    ("motion", (120, 68), 2)])
+def test_dense_frame_step_on_the_card(dev, kind, dims, n_frames):
+    """models/entry.frame_step on the front-end's dense tensors, frame by
+    frame on the card and on the CPU: the same rings, with K9 and
+    mc_recon launched once per frame (and K2, or K7 on the 1080p I
+    picture, and K1)."""
+    from h264bsd_tpu_torch.models.entry import dense_frames, frame_step
+    from h264bsd_tpu_torch.models.state import new_ring
+    from h264bsd_tpu_torch.utils import streamgen
+    from h264bsd_tpu_torch.utils.motion_stream import make_motion_stream
+
+    data = streamgen.make_intra_stress_stream(*dims, n_frames) \
+        if kind == "intra" else make_motion_stream(*dims, n_frames, seed=0)
+    frames = list(dense_frames(data))
+    assert len(frames) == n_frames
+    g = frames[0][2]
+    rings = [new_ring(g["dpb_slots"], dims[1], dims[0], d)
+             for d in (dev, "cpu")]
+    before = dict(_kernels.LAUNCHES)
+    for k, (t, slot, _, _) in enumerate(frames):
+        for ring in rings:
+            frame_step(t, *ring, slot, *dims)
+        for a, b in zip(*rings):
+            assert torch.equal(a.cpu(), b), f"frame {k}"
+    after = {k: v - before[k] for k, v in _kernels.LAUNCHES.items()}
+    assert after["idct_blocks"] == after["mc_recon"] == n_frames
+    assert after["deblock_wf"] == n_frames
+    assert after["intra_list"] + after["intra_wf"] >= 1
+
+
+def test_frame_checksum_device_on_the_card(dev):
+    """The checksum on the card equals frame_checksum_host on 1080p
+    planes: seeded, and all 255 (the largest sum), whole and truncated as
+    the reference app dumps 1080p."""
+    import numpy as np
+
+    from h264bsd_tpu_torch.models.decoder import (frame_checksum_device,
+                                                  frame_checksum_host)
+
+    rng = np.random.default_rng(7)
+    shapes = ((1088, 1920), (544, 960), (544, 960))
+    for planes in ([rng.integers(0, 256, s, np.uint8) for s in shapes],
+                   [np.full(s, 255, np.uint8) for s in shapes]):
+        for n in (1920 * 1088 * 3 // 2, 1920 * 1080 * 3 // 2):
+            got = frame_checksum_device(
+                *(torch.from_numpy(p).to(dev) for p in planes), n)
+            assert got.device.type == "cuda"
+            assert int(got) == frame_checksum_host(
+                b"".join(p.tobytes() for p in planes)[:n])

@@ -12,7 +12,9 @@ and prints one JSON line per geometry with:
                         in torch.cuda.synchronize();
   device_busy_ms_per_frame / device_idle_share
                         from a torch.profiler trace of one pipelined
-                        pass: the union of the CUDA activity intervals
+                        pass (utils/profiling.device_trace, which leaves
+                        its Chrome trace in traces/profile_torch_port/):
+                        the union of the CUDA activity intervals
                         (kernels, copies, memsets) over the wall time;
   kernels               device time and calls per frame by kernel name,
                         the port's CUDA kernels (every __global__
@@ -41,6 +43,8 @@ from pathlib import Path
 
 ROOT = Path(__file__).parents[1]
 sys.path.insert(0, str(ROOT))
+# the Chrome traces of the profiled passes (utils/profiling.device_trace)
+TRACES = ROOT / "traces" / "profile_torch_port"
 
 import torch  # noqa: E402
 
@@ -91,6 +95,7 @@ def profile(kind, w, h, n):
     from h264bsd_tpu_torch.frontend import binding as fe
     from h264bsd_tpu_torch.models.decoder import Decoder, decode_stream
     from h264bsd_tpu_torch.models.graphs import STATS, reset_stats
+    from h264bsd_tpu_torch.utils.profiling import device_trace
 
     call, data = make_stream(kind, w, h, n)
 
@@ -118,10 +123,8 @@ def profile(kind, w, h, n):
     e2e(True)                                   # warm-up
     piped, unpiped = e2e(True), e2e(False)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
     reset_stats()
-    with torch.profiler.profile(activities=acts) as prof:
+    with device_trace(TRACES, device="cuda") as prof:
         t0 = time.perf_counter()
         k = sum(1 for _ in decode_stream(data))
         torch.cuda.synchronize()

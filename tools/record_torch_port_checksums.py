@@ -114,6 +114,12 @@ STREAMS = {
                             kwargs=dict(qp=30)),
     "ippp_1080p_qp22": dict(maker="make_ippp_stream", args=[120, 68, 5],
                             kwargs=dict(qp=22)),
+    # the streams bench_torch.py times: 32-picture 1080p IPPP and
+    # 16-picture 1080p motion
+    "bench_ippp_1080p": dict(maker="make_ippp_stream", args=[120, 68, 32]),
+    "bench_motion_1080p": dict(module="motion_stream",
+                               maker="make_motion_stream",
+                               args=[120, 68, 16], kwargs=dict(seed=0)),
 }
 
 
