@@ -24,7 +24,9 @@ and 2 workers, the row-sharded blob and dense steps at 2 and 4 stripes,
 framepipe at 2 and 4 replicas and its eviction, MultiStreamDecoder
 sharded over 2 positions), the entry hooks (entry_fn_check, the dense
 frame_step of models/entry.py over 1080p IPPP, motion and all-I frames
-and the 2x68 strip, run_multichip_dryrun on 2 and 4 positions), the CLI
+and the 2x68 strip, then the motion frames once more with each step
+profiled, its device time split by stage, run_multichip_dryrun on 2 and
+4 positions), the CLI
 (a subprocess dumping 1080p IPPP, then --rgba and --render against the
 CPU) and bench_torch.py (30 s of timed passes per bench stream, its JSON
 lines printed), and checks every picture's
@@ -34,7 +36,9 @@ by tools/record_torch_port_checksums.py) and that no decode launches the
 MC kernels of the TPU kernels' signature, then times each kernel: its
 device time from torch.profiler's kernel events, the CUDA-event time of
 the wrapper call, and the plain version's time (K8 also at 1x68, 2x68
-and 2x543, and on each frame with every bS 0); and the MC route that
+and 2x543, and on each frame with every bS 0; K9 also cold, each call on
+its own copy of the inputs, rotated over more than 100 MB, and the
+bound's share of that time); and the MC route that
 mc_recon replaced, on the same inputs. Prints one JSON line per
 phase (with the graph captures, replays and eager frames of each decode
 phase), then the kernel table, the card's name and power limit, and as
@@ -47,6 +51,7 @@ Usage: python3 chip_smoke.py     (needs one CUDA device)
 from __future__ import annotations
 
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -218,6 +223,23 @@ def device_ms(fn, args, reps, name, attempts=3):
         ms += sum(e.time_range.end - e.time_range.start for e in dev
                   if e.name.startswith(extra)) / reps / 1e3
     return ms, sum(len(u) for u in us.values()) / reps
+
+
+# a cold reading's copies of the inputs hold more than this: twice the
+# H100's 50 MB L2 cache
+COLD_BYTES = 100e6
+
+
+def cold_device_ms(fn, args, reps, name):
+    """device_ms of kernel `name` on inputs the L2 cache does not hold, as
+    the bytes bound assumes: call i takes copy i mod c of `args` (made
+    before the profiled run, which then copies nothing), the c copies
+    together more than COLD_BYTES. Only the kernel's own events count.
+    Returns (ms, the copies c)."""
+    copies = [tuple(a.clone() for a in args)
+              for _ in range(int(COLD_BYTES // nbytes(args)) + 2)]
+    rot = itertools.cycle(copies)
+    return device_ms(lambda: fn(*next(rot)), (), reps, name)[0], len(copies)
 
 
 def route_device_ms(fn, args, reps):
@@ -860,6 +882,9 @@ def multistream_mesh_phase(recorded_stream, long_streams, launches):
 ENTRY_STREAMS = ("ippp_1080p", "motion_1080p", "intra_1080p", "ippp_2x68")
 ENTRY_KERNELS = ("idct_blocks", "mc_recon", "intra_list", "intra_wf",
                  "deblock_wf", "deblock_raster")
+# the stream whose dense frame_step the entry phase splits by stage: an I
+# picture (K7) and four P pictures (mc_recon, K2 on their intra MBs)
+SPLIT_STREAM = "motion_1080p"
 # the kernels each multi-device dry run must launch: the dense stripes
 # (K9, the stripe MC kernel), the blob stripes and the main path's frame
 # body (residual stage, mc_recon), K2 and K1 on every path
@@ -867,26 +892,82 @@ DRYRUN_KERNELS = ("idct_blocks", "mc_recon_stripe", "mc_recon",
                   "residual_sparse", "intra_list", "deblock_wf")
 
 
-def entry_decode(data):
+# the dense frame_step's device work by stage, in the order it runs on
+# its stream: the residual transform's PyTorch glue up to K9
+# (residual_blocks: DC transforms, dequant scales, external DC and skip
+# flags), K9, the empty-block mask and the residuals' plane layout,
+# mc_recon, the intra stage (K2's scratch, K2 or K7), the deblocking
+# filter (bS and thresholds, then K1 or K8), the store into the ring
+# slot; "upload" is every host-to-device copy (the front-end's tensors,
+# K2's list). A port kernel's event goes to its own stage, and the glue
+# after it to the stage that follows it (SPLIT_KERNELS: stage, the glue
+# stage after it or None)
+SPLIT_STAGES = ("upload", "residual_blocks glue", "K9",
+                "residual mask glue", "mc_recon", "intra", "deblock",
+                "store")
+SPLIT_KERNELS = {"idct_blocks_kernel": ("K9", "residual mask glue"),
+                 "mc_recon_kernel": ("mc_recon", "intra"),
+                 "intra_list_pos_kernel": ("intra", None),
+                 "intra_list_kernel": ("intra", "deblock"),
+                 "intra_wf_kernel": ("intra", "deblock"),
+                 "deblock_wf_kernel": ("deblock", "store"),
+                 "deblock_raster_kernel": ("deblock", "store")}
+
+
+def frame_split(events):
+    """Device microseconds of one dense frame_step by stage (SPLIT_STAGES)
+    from its profiler events, and whether the events held each of its
+    stages' kernels (the profiler may drop an event)."""
+    dev = sorted((e for e in events
+                  if e.device_type == torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.time_range.start)
+    split = dict.fromkeys(SPLIT_STAGES, 0.0)
+    glue, seen = "residual_blocks glue", set()
+    for e in dev:
+        us = e.time_range.end - e.time_range.start
+        own, after = SPLIT_KERNELS.get(e.name.split("(")[0], (None, None))
+        if e.name.startswith("Memcpy HtoD"):
+            split["upload"] += us
+        elif own is None:
+            split[glue] += us
+        else:
+            split[own] += us
+            seen.add(own)
+            glue = after or glue
+    return split, seen == {"K9", "mc_recon", "intra", "deblock"}
+
+
+def entry_decode(data, split=None):
     """Decode `data` frame by frame with models/entry.frame_step on the
     front-end's dense tensors (entry.dense_frames) on the card; returns
     the checksums of its pictures in display order (each taken on the
     card from its ring slot when the front-end releases it, read back
     once), the frames decoded and the seconds of the frame_step calls,
-    each to the end of its device work."""
+    each to the end of its device work. split: a list that gets each
+    frame's frame_split, from a torch.profiler run around its step (the
+    seconds then include the profiler's cost)."""
     from h264bsd_tpu_torch.models.decoder import frame_checksum_device
     from h264bsd_tpu_torch.models.entry import dense_frames, frame_step
     from h264bsd_tpu_torch.models.state import new_ring
 
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
     ring, shape, sums, frames, step_s = None, None, [], 0, 0.0
     for t, slot, g, released in dense_frames(data):
         w, h = g["width_mbs"], g["height_mbs"]
         if (g["dpb_slots"], h, w) != shape:
             shape = (g["dpb_slots"], h, w)
             ring = new_ring(*shape, CARD)
-        t0 = time.perf_counter()
-        frame_step(t, *ring, slot, w, h)
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if split is None:
+            frame_step(t, *ring, slot, w, h)
+            torch.cuda.synchronize()
+        else:
+            with torch.profiler.profile(activities=acts) as prof:
+                frame_step(t, *ring, slot, w, h)
+                torch.cuda.synchronize()
+            split.append(frame_split(prof.events()))
         step_s += time.perf_counter() - t0
         frames += 1
         sums += [frame_checksum_device(*(p[s] for p in ring), 384 * w * h)
@@ -898,7 +979,9 @@ def entry_phase(recorded_stream, launches):
     """entry_fn_check() on the card against entry_fn_and_args on the CPU;
     then the dense frame_step on ENTRY_STREAMS, every picture's checksum
     against the recorded one, ms per frame and launches per frame; fails
-    unless each of ENTRY_KERNELS launched."""
+    unless each of ENTRY_KERNELS launched. Then SPLIT_STREAM once more,
+    each frame profiled: its device ms per frame by stage (frame_split),
+    the checksums checked again."""
     from h264bsd_tpu_torch.models.entry import (entry_fn_and_args,
                                                 entry_fn_check)
 
@@ -909,10 +992,11 @@ def entry_phase(recorded_stream, launches):
                              "from entry_fn_and_args on the CPU")
     rec = {"entry_fn_check": "card equals cpu"}
     frames_all = k9_all = 0
-    for name in ENTRY_STREAMS:
-        e, data = recorded_stream(name)
+    for name, stream, split in ([(n, n, None) for n in ENTRY_STREAMS]
+                                + [("split", SPLIT_STREAM, [])]):
+        e, data = recorded_stream(stream)
         (sums, frames, step_s), _, counts, _ = counted(
-            lambda: entry_decode(data))
+            lambda: entry_decode(data, split))
         if sums != e["checksums"]:
             raise AssertionError(f"entry {name}: frame_step checksums {sums} "
                                  f"!= recorded {e['checksums']}")
@@ -924,6 +1008,17 @@ def entry_phase(recorded_stream, launches):
                      "ms_per_frame": 1e3 * step_s / frames,
                      "launches_per_frame": {k: v / frames
                                             for k, v in counts.items() if v}}
+        if split is not None:
+            whole = [f for f, complete in split if complete]
+            rec[name].update(
+                stream=stream, frames_split=len(whole),
+                device_ms_per_frame={
+                    k: sum(f[k] for f in whole) / max(len(whole), 1) / 1e3
+                    for k in SPLIT_STAGES},
+                device_ms_by_frame=[{k: v / 1e3 for k, v in f.items()}
+                                    for f, _ in split])
+            rec[name]["device_busy_ms_per_frame"] = sum(
+                rec[name]["device_ms_per_frame"].values())
     need_launched("entry", total, ENTRY_KERNELS)
     for k, v in total.items():
         launches[k] += v
@@ -1311,9 +1406,10 @@ def main() -> int:
               lambda *a: mc_exception_plain(*a, mb_row_offset=first),
               grids + args, (20, 5))
         checks[-1]["case"] = checks[-2]["case"] = f"mb_row_offset {first}"
-    # K9 on two tiles of the TPU kernel and on 16; the residual stage at
-    # the decode tests' size, a mid size and 1080p
-    for n in (512, 8192):
+    # K9 on N ragged against its four lanes a block and 64 blocks a CUDA
+    # block, on two tiles of the TPU kernel and on 16; the residual stage
+    # at the decode tests' size, a mid size and 1080p
+    for n in (1, 3, 33, 512, 8191, 8192):
         check("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
               lambda *a: (idct_blocks_plain(*a[:4]),),
               kc.case_inputs(kc.idct_case(n, n), kc.IDCT_STATE, dev), (n,))
@@ -1654,7 +1750,7 @@ def main() -> int:
     rows, extra_rows = [], []
 
     def time_kernel(name, kernel, plain, args, dims, bound, serial,
-                    plain_reps, extra=False, case=None):
+                    plain_reps, extra=False, case=None, cold=False):
         """plain_reps: calls of the plain version timed, or 0 to time the
         one call the check makes. serial: the kernel's chain of dependent
         steps (MBs on the
@@ -1662,7 +1758,9 @@ def main() -> int:
         anti-diagonals -- in their single launch; MBs walked by K8; 1
         for MC and K9). extra: a row at a second shape, kept out of the
         kernels line; case: what the row's inputs are, where not the
-        kernel's usual case."""
+        kernel's usual case; cold: add the device time on inputs the L2
+        cache does not hold (cold_ms, cold_device_ms) and the bound's
+        share of it."""
         got = kernel(*planes_copy(args), *dims)
         copies = planes_copy(args)
         start = torch.cuda.Event(enable_timing=True)
@@ -1697,6 +1795,11 @@ def main() -> int:
             "profiled_launches_per_call": recorded,
             "serial_steps": serial, "bytes": byt, "ops": ops,
             **({"case": case} if case else {})})
+        if cold:
+            row = (extra_rows if extra else rows)[-1]
+            row["cold_ms"], row["cold_copies"] = cold_device_ms(
+                lambda *a: kernel(*a, *dims), args, 20, name)
+            row["cold_share_of_bound"] = row["bound_ms"] / row["cold_ms"]
 
     for seed, dims, extra in ((10, (120, 68), False), (11, (80, 45), True)):
         args = kc.deblock_inputs(kc.deblock_case(seed, *dims), *dims, dev)
@@ -1847,19 +1950,19 @@ def main() -> int:
     n = args[0].shape[0]
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
-                idct_bound(n), 1, 5)
+                idct_bound(n), 1, 5, cold=True)
     n = 8192
     args = kc.case_inputs(kc.idct_case(16, n), kc.IDCT_STATE, dev)
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), args, (n,),
-                idct_bound(n), 1, 5, True)
+                idct_bound(n), 1, 5, True, cold=True)
     # the dense frame_step's blocks: the whole P picture (195,840 blocks),
     # one launch per frame on that path
     n = dense_k9[0].shape[0]
     time_kernel("idct_blocks", lambda *a: (idct_blocks(*a[:4]),),
                 lambda *a: (idct_blocks_plain(*a[:4]),), dense_k9, (n,),
                 idct_bound(n), 1, 5, True,
-                "motion_1080p frame 1, dense (frame_step)")
+                "motion_1080p frame 1, dense (frame_step)", cold=True)
     extra_rows[-1]["launches_per_frame"] = dense_k9_per_frame
     # the residual stage on the second picture (a P picture) of the 1080p
     # motion stream
@@ -1876,7 +1979,9 @@ def main() -> int:
                                          "profiled_launches_per_call",
                                          "serial_steps",
                                          "launches_per_frame", "case",
-                                         "no_edges_ms")
+                                         "no_edges_ms", "cold_ms",
+                                         "cold_copies",
+                                         "cold_share_of_bound")
                        if k in r}
                       for r in rows + extra_rows],
           "mc_old_route": old_route_row})

@@ -8,10 +8,16 @@
 // points share the block code (idct_block):
 //
 // h264_idct_blocks is K9 with the JAX package's signature: (N, 16) int32
-// levels and scales, (N,) int32 ext_dc and skip_dc, (N, 16) int32 out.
-// One thread per block, everything in registers; consecutive threads take
-// consecutive blocks (the TPU version puts the 16 positions in sublanes
-// and 512 blocks in lanes).
+// levels and scales, (N,) int32 ext_dc and skip_dc, (N, 16) int32 out,
+// the three (N, 16) arrays 16-byte aligned. A stream kernel: four
+// consecutive lanes take one block, lane r its pixel row r (positions
+// 4r..4r+3), so a warp's every load and store is one 16-byte vector a
+// lane on 512 contiguous bytes. A lane dequantizes its row and runs the
+// row's horizontal butterfly; the group's rows reach each lane by
+// shuffles within the four lanes, and the lane runs the vertical
+// butterflies of its own output row (the TPU version puts the 16
+// positions in sublanes and 512 blocks in lanes). Any N: a group past N
+// does nothing, nothing is padded.
 //
 // h264_residual_sparse is the port's whole residual stage (the plain
 // version is residual_planes_sparse, h264bsd_tpu_torch/ops/transform.py,
@@ -37,9 +43,12 @@
 //   MB's 384 residuals in shared memory and writes them once, 16 bytes a
 //   lane, into res_l (nMB, 16, 16) and res_c (nMB, 2, 8, 8).
 //
-// Bound: bytes. A block reads 16 levels and writes 16 int32 residuals
-// (~100 bytes) for ~120 int32 operations, far below Hopper's ~5 int32
-// operations per byte of HBM bandwidth. The residual stage writes each
+// Bound: bytes. K9 moves 200 bytes a block (64 of levels, 64 of scales,
+// 8 of ext_dc and skip_dc, 64 out) for ~120 int32 operations, far below
+// Hopper's ~5 int32 operations per byte of HBM bandwidth: its design is
+// about keeping enough coalesced bytes in flight (two 16-byte streaming
+// loads a lane, 2048 lanes an SM, 64 KB an SM against the ~15 KB that
+// 3.35 TB/s at ~0.6 us of latency needs). The residual stage writes each
 // output once and reads each entry, DC entries included, once; the DC
 // transforms that ran as ~60 PyTorch launches stay in registers.
 
@@ -94,19 +103,55 @@ __device__ __forceinline__ void idct_block(int d[16]) {
   }
 }
 
-// K9: one thread per block.
-__global__ void __launch_bounds__(256) idct_blocks_kernel(
-    const int32_t* coeff, const int32_t* scales, const int32_t* ext_dc,
-    const int32_t* skip_dc, int32_t* out, int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k >= n) return;
-  int d[16];
+// K9: four lanes per block, lane r of a group its pixel row r.
+#define IDCT_THREADS 256
+
+__global__ void __launch_bounds__(IDCT_THREADS, 2048 / IDCT_THREADS)
+    idct_blocks_kernel(const int4* __restrict__ coeff,
+                       const int4* __restrict__ scales,
+                       const int32_t* __restrict__ ext_dc,
+                       const int32_t* __restrict__ skip_dc,
+                       int4* __restrict__ out, int n) {
+  // row q = 4k + r of the (4N, 4) view: block k's pixel row r
+  const long long q = (long long)blockIdx.x * IDCT_THREADS + threadIdx.x;
+  const long long k = q >> 2;
+  if (k >= n) return;                       // the whole group of four
+  const int r = threadIdx.x & 3;
+  const unsigned group = 0xFu << (threadIdx.x & 28);
+  // levels and scales are read once: streaming loads; the output stays
+  // cached for the caller's next read
+  const int4 lv = __ldcs(coeff + q), sc = __ldcs(scales + q);
+  int a = lv.x * sc.x;
+  const int b = lv.y * sc.y, c = lv.z * sc.z, e = lv.w * sc.w;
+  if (r == 0 && __ldcs(skip_dc + k) != 0) a = __ldcs(ext_dc + k);
+  // the horizontal butterfly of row r (idct_block's first pass)
+  int h[4];
+  {
+    const int t0 = a + c, t1 = a - c, t2 = (b >> 1) - e, t3 = b + (e >> 1);
+    h[0] = t0 + t3;
+    h[1] = t1 + t2;
+    h[2] = t1 - t2;
+    h[3] = t0 - t3;
+  }
+  // column j of the four rows, from the group's lanes
+  int col[4][4];
 #pragma unroll
-  for (int i = 0; i < 16; ++i) d[i] = coeff[k * 16 + i] * scales[k * 16 + i];
-  if (skip_dc[k] != 0) d[0] = ext_dc[k];
-  idct_block(d);
+  for (int i = 0; i < 4; ++i) {
 #pragma unroll
-  for (int i = 0; i < 16; ++i) out[k * 16 + i] = d[i];
+    for (int j = 0; j < 4; ++j) col[j][i] = __shfl_sync(group, h[j], i, 4);
+  }
+  // the vertical butterflies' output row r, rounded
+  int v[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int t0 = col[j][0] + col[j][2], t1 = col[j][0] - col[j][2],
+              t2 = (col[j][1] >> 1) - col[j][3],
+              t3 = col[j][1] + (col[j][3] >> 1);
+    const int x = r == 0 ? t0 + t3 : (r == 1 ? t1 + t2 : (r == 2 ? t1 - t2
+                                                                : t0 - t3));
+    v[j] = (x + 32) >> 6;
+  }
+  out[q] = make_int4(v[0], v[1], v[2], v[3]);
 }
 
 // Offset of raster block b's pel (r, c) in its MB's 384 residuals: luma
@@ -240,10 +285,13 @@ static int blocks_for(int n) { return (n + 255) / 256; }
 extern "C" int h264_idct_blocks(const void* coeff, const void* scales,
                                 const void* ext_dc, const void* skip_dc,
                                 void* out, int n, void* stream) {
+  const long long lanes = 4LL * n;         // four a block
   if (n > 0)
-    idct_blocks_kernel<<<blocks_for(n), 256, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)coeff, (const int32_t*)scales,
-        (const int32_t*)ext_dc, (const int32_t*)skip_dc, (int32_t*)out, n);
+    idct_blocks_kernel<<<(unsigned)((lanes + IDCT_THREADS - 1) /
+                                    IDCT_THREADS),
+                         IDCT_THREADS, 0, (cudaStream_t)stream>>>(
+        (const int4*)coeff, (const int4*)scales, (const int32_t*)ext_dc,
+        (const int32_t*)skip_dc, (int4*)out, n);
   return (int)cudaGetLastError();
 }
 

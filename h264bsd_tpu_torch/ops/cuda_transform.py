@@ -32,7 +32,9 @@ from .transform import (idct_blocks_plain, residual_blocks,
 def idct_blocks(coeff, scales, ext_dc, skip_dc):
     """K9: (N, 16) levels * scales, position 0 replaced by ext_dc where
     skip_dc != 0, 4x4 IDCT, (x + 32) >> 6 -> (N, 16) int32. CPU tensors
-    run the plain version."""
+    run the plain version. The kernel reads and writes the (N, 16) arrays
+    16 bytes a lane: an int32 view of them that is not 16-byte aligned
+    raises ValueError (other dtypes and layouts are copied first)."""
     if coeff.device.type == "cpu":
         return idct_blocks_plain(coeff, scales, ext_dc, skip_dc)
     n = coeff.shape[0]
@@ -44,11 +46,11 @@ def idct_blocks(coeff, scales, ext_dc, skip_dc):
                     (coeff, scales, ext_dc, skip_dc))
     out = torch.empty((n, 16), dtype=i32, device=dev)
     _kernels.launch("h264_idct_blocks", dev,
-                    _kernels.ptr(c, i32, (n, 16), "coeff"),
-                    _kernels.ptr(s, i32, (n, 16), "scales"),
+                    _kernels.ptr(c, i32, (n, 16), "coeff", 16),
+                    _kernels.ptr(s, i32, (n, 16), "scales", 16),
                     _kernels.ptr(dc, i32, (n,), "ext_dc"),
                     _kernels.ptr(sk, i32, (n,), "skip_dc"),
-                    _kernels.ptr(out, i32, (n, 16), "out"), n)
+                    _kernels.ptr(out, i32, (n, 16), "out", 16), n)
     return out
 
 

@@ -410,15 +410,46 @@ def test_p_decode_runs_mc_recon_only(dev):
         assert after[k] == before[k]
 
 
-@pytest.mark.parametrize("n", [512, 8192, 1000])
-def test_idct_blocks_kernel(dev, n):
-    args = case_inputs(idct_case(n, n), IDCT_STATE, dev)
+# N ragged against the kernel's four lanes a block and 64 blocks a CUDA
+# block, two tiles of the TPU kernel, 16 of them, and a whole 1080p
+# frame's blocks; the external DC on half, none or all of the blocks;
+# the arrays as made, or rows 3.. of larger ones (16-byte aligned views)
+@pytest.mark.parametrize("layout", ["own", "slice"])
+@pytest.mark.parametrize("skip", ["half", "none", "all"])
+@pytest.mark.parametrize("n", [1, 3, 4, 5, 31, 32, 33, 512, 1000, 8191, 8192,
+                               195840])
+def test_idct_blocks_kernel(dev, n, skip, layout):
+    case = idct_case(n, n + 3)
+    if skip != "half":
+        case["skip_dc"][:] = skip == "all"
+    args = case_inputs(case, IDCT_STATE, dev)
+    args = tuple(a[3:] if layout == "slice" else a[:n] for a in args)
+    if layout == "slice":
+        assert args[0].data_ptr() % 16 == 0 and args[0].storage_offset()
     before = _kernels.LAUNCHES["idct_blocks"]
     got = idct_blocks(*args)
     want = idct_blocks_plain(*args)
     torch.cuda.synchronize()
+    assert got.shape == (n, 16)
     assert torch.equal(got, want)
     assert _kernels.LAUNCHES["idct_blocks"] == before + 1
+
+
+@pytest.mark.parametrize("name", ["coeff", "scales"])
+def test_idct_blocks_kernel_refuses_a_misaligned_view(dev, name):
+    """A (N, 16) int32 view 4 bytes off a 16-byte boundary raises; the
+    plain version does not run in the kernel's place."""
+    args = list(case_inputs(idct_case(5, 64), IDCT_STATE, dev))
+    i = IDCT_STATE.index(name)
+    flat = torch.empty(64 * 16 + 1, dtype=torch.int32, device=dev)
+    view = flat[1:].view(64, 16)
+    view.copy_(args[i])
+    assert view.data_ptr() % 16 == 4
+    args[i] = view
+    before = dict(_kernels.LAUNCHES)
+    with pytest.raises(ValueError, match=f"{name}: expected a 16-byte"):
+        idct_blocks(*args)
+    assert _kernels.LAUNCHES == before
 
 
 @pytest.mark.parametrize("seed,dims", [(0, (6, 4)), (1, (20, 12)),

@@ -35,21 +35,29 @@ def _eq(got, want, name):
     np.testing.assert_array_equal(np.asarray(got), np.asarray(want), name)
 
 
-def test_idct_blocks_plain_matches_pallas_interpret():
-    """N = 1024 blocks (two of the TPU kernel's 512-block tiles), an
-    external DC on half of them."""
+@pytest.mark.parametrize("share", [0, 0.5, 1])
+@pytest.mark.parametrize("n", [1024, 700])
+def test_idct_blocks_plain_matches_pallas_interpret(n, share):
+    """N = 1024 blocks (two of the TPU kernel's 512-block tiles) and 700
+    (ragged: the Pallas kernel's input is padded with zero blocks to its
+    tile here, and its output cut back to N), an external DC on none,
+    half or all of them."""
     import jax.experimental.pallas as pl
     from h264bsd_tpu.ops import pallas_transform as pt
-    case = idct_case(0, 1024)
+    case = idct_case(0, n)
+    case["skip_dc"] = (np.random.default_rng(1).random(n) < share).astype(
+        np.int32)
+    pad = -n % pt.TILE
+    padded = [np.pad(case[k], [(0, pad)] + [(0, 0)] * (case[k].ndim - 1))
+              for k in IDCT_STATE]
     orig = pl.pallas_call
     pl.pallas_call = lambda *a, **k: orig(*a, interpret=True, **k)
     try:
-        want = pt.idct_blocks_pallas(*(jnp.asarray(case[k])
-                                       for k in IDCT_STATE))
+        want = pt.idct_blocks_pallas(*(jnp.asarray(a) for a in padded))[:n]
     finally:
         pl.pallas_call = orig
     got = ttransform.idct_blocks_plain(*case_inputs(case, IDCT_STATE, CPU))
-    assert got.dtype == torch.int32
+    assert got.dtype == torch.int32 and got.shape == (n, 16)
     _eq(got, want, "idct_blocks")
 
 

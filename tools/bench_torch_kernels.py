@@ -10,20 +10,30 @@ in, on the cases chip_smoke.py times them on:
 - deblock_wf (K1, deblock_wf_kernel): 80x45 and 120x68, random inputs;
 - mc_recon (mc_recon_kernel): the 1080p MC case
   (kernel_cases.mc_recon_case(15, 120, 68, 4, 0.06)) and the 1080p frames
-  whose MBs all take one path (kernel_cases.mc_recon_kind_cases).
+  whose MBs all take one path (kernel_cases.mc_recon_kind_cases);
+- idct_blocks (K9, idct_blocks_kernel): kernel_cases.idct_case(16, n)
+  at n = 8192, 97,920 (a 34-MB-row stripe of 1080p) and 195,840 (a whole
+  1080p frame) random blocks (K9's time does not depend on the data).
 
 Builds the CUDA kernels from the checkout, then prints one JSON line per
 case: graph_ms, the mean time of one call from CUDA events around the
 replay of a CUDA graph of --reps back-to-back calls, each on its own
 copy of the planes (no host launch cost is in it; a wrapper's memsets
-are); profiler_ms, the mean of the kernel's torch.profiler events over
-20 calls (chip_smoke.py's method); the bound from the bytes (and, for
+are; K9, which writes no input, calls on the same inputs: warm);
+profiler_ms, the mean of the kernel's torch.profiler events over 20
+calls (chip_smoke.py's method); the bound from the bytes (and, for
 mc_recon, the int32 operations) chip_smoke.py counts; and the card's
-name and power limit. Every case under 1000 MBs is checked byte-equal to
-the plain version first (the plain K8 takes ~40 s at 2x543). It uses
-only what chip_smoke.py and kernel_cases.py have had since the tree
-that added mc_recon, so a copy of it in an earlier checkout's tools/
-times that tree's kernels: run parent and change in turns in one call.
+name and power limit. For K9 also the cold readings cold_graph_ms and
+cold_profiler_ms: call i takes copy i mod c of the inputs, the c copies
+together more than COLD_BYTES (twice the card's 50 MB L2 cache), so
+each call reads its inputs from device memory, as the bound assumes;
+and the bound's share of the cold profiler time. Every case under 1000
+MBs, and every K9 case, is checked byte-equal to the plain version
+first (the plain K8 takes ~40 s at 2x543). It uses only what
+chip_smoke.py, kernel_cases.py and _kernels.py have had since the tree
+that added K9's dense frame_step (git b0ab340), so a copy of it in an
+earlier checkout's tools/ times that tree's kernels: run parent and
+change in turns in one call.
 
 Usage: python3 tools/bench_torch_kernels.py [--kernel deblock_raster ...]
                                       [--reps 50]
@@ -32,7 +42,9 @@ Usage: python3 tools/bench_torch_kernels.py [--kernel deblock_raster ...]
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
+import math
 import sys
 from pathlib import Path
 
@@ -41,7 +53,15 @@ sys.path.insert(0, str(ROOT))
 
 import torch  # noqa: E402
 
-KERNELS = ("deblock_raster", "deblock_wf", "mc_recon")
+KERNELS = ("deblock_raster", "deblock_wf", "mc_recon", "idct_blocks")
+# K9's blocks per case, and the bytes a block moves: 16 int32 levels and
+# scales, its int32 ext_dc and skip_dc, 16 int32 out (chip_smoke.py's
+# idct_bound)
+IDCT_BLOCKS = (8192, 97920, 195840)
+IDCT_BLOCK_BYTES = 16 * 4 * 2 + 8 + 16 * 4
+# a cold reading's copies of the inputs hold more than this: twice the
+# H100's 50 MB L2 cache
+COLD_BYTES = 100e6
 
 
 def deblock_kinds(args, seed, wm, hm, variants):
@@ -67,6 +87,16 @@ def cases(name, dev):
     None) of each case of kernel `name`."""
     import chip_smoke as cs
     from h264bsd_tpu_torch.utils import kernel_cases as kc
+    if name == "idct_blocks":
+        from h264bsd_tpu_torch.ops.cuda_transform import idct_blocks
+        from h264bsd_tpu_torch.ops.transform import idct_blocks_plain
+        for n in IDCT_BLOCKS:
+            yield (f"random, seed 16, {n} blocks",
+                   lambda *a: (idct_blocks(*a[:4]),),
+                   lambda *a: (idct_blocks_plain(*a[:4]),),
+                   kc.case_inputs(kc.idct_case(16, n), kc.IDCT_STATE, dev),
+                   (n,), n * IDCT_BLOCK_BYTES, None)
+        return
     if name == "mc_recon":
         from h264bsd_tpu_torch.ops.cuda_mc import (mc_recon_cuda,
                                                    mc_recon_plain)
@@ -99,6 +129,27 @@ def cases(name, dev):
                 yield label, kernel, plain, args, dims, byt, None
 
 
+def graph_ms(kernel, calls, dims):
+    """Mean time of one call from CUDA events around the replay of a CUDA
+    graph of kernel(*c, *dims) for each argument tuple c of `calls`,
+    back to back (after one warm replay)."""
+    import chip_smoke as cs
+    kernel(*cs.planes_copy(calls[0]), *dims)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for c in calls:
+            kernel(*c, *dims)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    graph.replay()             # warm
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / len(calls)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--kernel", nargs="+", choices=KERNELS, default=KERNELS)
@@ -114,40 +165,46 @@ def main() -> int:
     smi = cs.nvidia_smi()
     _kernels.build(force=True)
     for name in opts.kernel:
+        # K9 writes none of its inputs: its warm graph calls on them as
+        # they are; the other kernels work on their planes in place
+        in_place = name != "idct_blocks"
         for label, kernel, plain, args, dims, byt, ops in cases(name, dev):
-            n = dims[0] * dims[1]
-            if n < 1000:
+            if not in_place or math.prod(dims) < 1000:
                 err = cs.max_abs_err(kernel(*cs.planes_copy(args), *dims),
                                      plain(*cs.planes_copy(args), *dims))
                 if err:
                     raise AssertionError(
                         f"{name} {dims} {label}: the kernel differs from "
                         f"its plain version (max |err| {err})")
-            copies = [cs.planes_copy(args) for _ in range(opts.reps)]
-            kernel(*cs.planes_copy(args), *dims)
-            torch.cuda.synchronize()
-            graph = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(graph):
-                for c in copies:
-                    kernel(*c, *dims)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            graph.replay()             # warm
-            start.record()
-            graph.replay()
-            end.record()
-            end.synchronize()
-            ms = start.elapsed_time(end) / opts.reps
+            calls = [cs.planes_copy(args) if in_place else args
+                     for _ in range(opts.reps)]
+            ms = graph_ms(kernel, calls, dims)
             prof_ms, _ = cs.device_ms(lambda *a: kernel(*a, *dims), args,
                                       20, name)
             row = {"kernel": name, "dims": list(dims), "case": label,
-                   "graph_ms": ms, "us_per_mb": 1e3 * ms / n,
-                   "profiler_ms": prof_ms,
+                   "graph_ms": ms, "profiler_ms": prof_ms,
                    "bound_bytes_ms": 1e3 * byt / cs.HBM_BYTES_PER_S}
+            if in_place:
+                row["us_per_mb"] = 1e3 * ms / math.prod(dims)
+            else:
+                copies = [tuple(a.clone() for a in args) for _ in range(
+                    int(COLD_BYTES // cs.nbytes(args)) + 2)]
+                rot = itertools.cycle(copies)
+                row["cold_copies"] = len(copies)
+                row["cold_graph_ms"] = graph_ms(
+                    kernel, [next(rot) for _ in range(max(opts.reps,
+                                                          len(copies)))],
+                    dims)
+                # args () makes device_ms copy nothing in the profiled run
+                row["cold_profiler_ms"] = cs.device_ms(
+                    lambda: kernel(*next(rot), *dims), (), 20, name)[0]
+                row["cold_share_of_bound"] = \
+                    row["bound_bytes_ms"] / row["cold_profiler_ms"]
+                del copies, rot
             if ops is not None:
                 row["bound_ops_ms"] = 1e3 * ops / cs.ALU_OPS_PER_S
             print(json.dumps({**row, "gpu": smi}), flush=True)
-            del graph, copies
+            del calls
     return 0
 
 
