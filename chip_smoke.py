@@ -29,7 +29,15 @@ profiled, its device time split by stage, run_multichip_dryrun on 2 and
 4 positions), the CLI
 (a subprocess dumping 1080p IPPP, then --rgba and --render against the
 CPU) and bench_torch.py (30 s of timed passes per bench stream, its JSON
-lines printed), and checks every picture's
+lines printed), then the corrupted streams (the fuzz_* entries: 1-4
+flipped bytes of the small P streams, the 2x68 strip and the 1080p
+all-I, IPPP and motion streams) through decode_stream, and the 1080p ones
+also through MultiStreamDecoder at N = 4 and framepipe at 2 replicas,
+failing unless K1, K2, K7, K8, mc_recon and the residual stage launched
+on them (their launches kept apart, the kernels line's fuzz_launches),
+and the tools tools/bench_configs_torch.py (BASELINE.json's config
+matrix), bench_scaling_torch.py (1, 2 and 4 positions of the card) and
+count_graphs_torch.py with short budgets, and checks every picture's
 checksum, and the SEI messages, against the values the JAX package
 recorded (h264bsd_tpu_torch/testdata/reference_checksums.json, written
 by tools/record_torch_port_checksums.py) and that no decode launches the
@@ -1131,28 +1139,124 @@ def cli_phase(recorded_stream, launches):
 def bench_phase(launches):
     """bench_torch.py's main with a 30 s budget per stream on both bench
     streams; its JSON lines, printed as they are."""
-    import contextlib
-    import io
-
     import bench_torch
 
-    out = io.StringIO()
-    with contextlib.redirect_stdout(out):
-        rc, _, counts, _ = counted(lambda: bench_torch.main(
-            ["--budget", "30"]))
-    lines = out.getvalue().splitlines()
-    for line in lines:
-        print(line, flush=True)
-    recs = [json.loads(line) for line in lines]
-    if rc or len(recs) != len(bench_torch.STREAMS) or not all(
-            r["bit_exact"] and r["value"] for r in recs):
-        raise AssertionError(f"bench: exit code {rc}, records {recs}")
+    recs, _, counts = tool_phase(bench_torch, ["--budget", "30"])
+    if len(recs) != len(bench_torch.STREAMS) or not all(
+            r["value"] for r in recs):
+        raise AssertionError(f"bench: records {recs}")
     for k, v in counts.items():
         launches[k] += v
     return {"streams": [r["stream"] for r in recs],
             "fps": [r["value"] for r in recs],
             "fps_all": [r["fps_all"] for r in recs],
-            "launches": {k: v for k, v in counts.items() if v}}
+            "launches": counts}
+
+
+def tool_phase(tool, argv):
+    """A script module's main(argv), its JSON lines printed as they are;
+    fails on a non-zero exit or a line that is not bit-exact. Returns the
+    lines, the seconds and the launch counts that are not 0."""
+    import contextlib
+    import io
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, wall, counts, _ = counted(lambda: tool.main(argv))
+    lines = out.getvalue().splitlines()
+    for line in lines:
+        print(line, flush=True)
+    recs = [json.loads(line) for line in lines]
+    if rc or not recs or not all(r.get("bit_exact", True) for r in recs):
+        raise AssertionError(f"{tool.__name__}: exit code {rc}, records "
+                             f"{recs}")
+    return recs, wall, {k: v for k, v in counts.items() if v}
+
+
+# the fuzz phase: the corrupted entries of reference_checksums.json
+# (fuzz_<base>_s<seed>), and the 1080p ones that also go through
+# MultiStreamDecoder (two rounds of N = 4, a motion stream first: its DPB
+# sizes the ring) and framepipe at 2 replicas; the kernels the phase
+# must launch on corrupted input
+FUZZ_GROUPS = (("motion_1080p_s0", "ippp_1080p_s0", "motion_1080p_s1",
+                "ippp_1080p_s1"),
+               ("motion_1080p_s2", "ippp_1080p_s2", "motion_1080p_s1",
+                "ippp_1080p_s0"))
+FUZZ_KERNELS = ("deblock_wf", "deblock_raster", "intra_list", "intra_wf",
+                "mc_recon", "residual_sparse")
+
+
+def fuzz_phase(ref):
+    """Every corrupted entry through decode_stream on the card, and the
+    1080p ones through MultiStreamDecoder (round by round) and framepipe
+    at 2 replicas of the card, each picture's checksum against the one
+    the JAX package recorded; the launch counts set to 0 before each run
+    and read after it, summed over the phase (kept apart from the clean
+    paths' counts). Fails unless every kernel of FUZZ_KERNELS launched,
+    or if a decode launched the MC kernels of the TPU signature. Returns
+    the record and the phase's launch counts."""
+    from h264bsd_tpu_torch.models.decoder import decode_stream
+    from h264bsd_tpu_torch.parallel.framepipe import decode_stream_framepipe
+    from h264bsd_tpu_torch.parallel.mesh import Mesh
+    from h264bsd_tpu_torch.parallel.multistream import MultiStreamDecoder
+    from h264bsd_tpu_torch.utils.recorded import (corrupt,
+                                                  make_recorded_stream)
+
+    bases = {}
+
+    def stream(name):
+        e = ref[name]
+        base = name[len("fuzz_"):name.rindex("_s")]
+        if base not in bases:
+            bases[base] = make_recorded_stream(ref[base])
+        data = corrupt(bases[base], e["corrupt"]["seed"])
+        if hashlib.sha256(data).hexdigest() != e["sha256"]:
+            raise AssertionError(f"{name}: stream bytes differ from the "
+                                 "recorded stream")
+        return e["checksums"], data
+
+    total = {k: 0 for k in KERNELS}
+    stats_total = {}
+
+    def run(label, fn, want):
+        got, wall, counts, stats = counted(fn)
+        if got != want:
+            raise AssertionError(f"fuzz {label}: checksums {got} != "
+                                 f"recorded {want}")
+        if counts["mc_uniform"] or counts["mc_exception"]:
+            raise AssertionError(f"fuzz {label}: the MC kernels of the TPU "
+                                 f"kernels' signature launched: {counts}")
+        for k, v in counts.items():
+            total[k] += v
+        for k, v in stats.items():
+            stats_total[k] = stats_total.get(k, 0) + v
+        return wall
+
+    names = [k for k in ref if k.startswith("fuzz_")]
+    t0 = time.perf_counter()
+    pictures = 0
+    for name in names:
+        want, data = stream(name)
+        run(name, lambda: checksums_of(decode_stream(data, device=CARD)),
+            want)
+        pictures += len(want)
+    decode_s = time.perf_counter() - t0
+    rec = {"streams": len(names), "pictures": pictures,
+           "decode_stream_s": decode_s}
+    for k, group in enumerate(FUZZ_GROUPS):
+        wants, streams = zip(*(stream(f"fuzz_{n}") for n in group))
+        rec[f"multistream_4_{k}_s"] = run(
+            f"multistream {group}", lambda: multistream_rounds(
+                MultiStreamDecoder(list(streams), device=CARD))[0],
+            list(wants))
+    mesh = Mesh([CARD] * 2, ("pipe",))
+    for name in sorted({n for g in FUZZ_GROUPS for n in g}):
+        want, data = stream(f"fuzz_{name}")
+        run(f"framepipe {name}", lambda: checksums_of(
+            decode_stream_framepipe(data, mesh, "pipe")), want)
+    need_launched("fuzz", total, FUZZ_KERNELS)
+    return {**rec, "checksums_ok": True, **stats_total,
+            "launches": {k: v for k, v in total.items() if v}}, total
 
 
 def main() -> int:
@@ -1622,6 +1726,24 @@ def main() -> int:
     emit({"phase": "multichip_dryrun", **multichip_phase(launches)})
     emit({"phase": "cli", **cli_phase(recorded_stream, launches)})
     emit({"phase": "bench", **bench_phase(launches)})
+    # corrupted streams: their launches are kept apart from `launches`
+    # (the clean paths'), and shown beside them in the kernels line
+    rec, fuzz_launches = fuzz_phase(ref)
+    emit({"phase": "fuzz", **rec})
+    # the config matrix, the scaling axes on device lists that repeat the
+    # card (no efficiency) and the graph keys of the bench streams, with
+    # short budgets; their launches are not the kernels line's
+    import importlib
+
+    for phase, script, argv in (
+            ("configs", "bench_configs_torch", ["--budget", "2"]),
+            ("scaling", "bench_scaling_torch",
+             ["--budget", "1", "--gop-copies", "2"]),
+            ("graphs", "count_graphs_torch", [])):
+        recs, wall, counts = tool_phase(
+            importlib.import_module(f"tools.{script}"), argv)
+        emit({"phase": phase, "lines": len(recs), "wall_s": wall,
+              "launches": counts})
     missing = [k for k, v in launches.items() if v == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
@@ -1786,6 +1908,7 @@ def main() -> int:
         (extra_rows if extra else rows).append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches[name],
+            "fuzz_launches": fuzz_launches[name],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",

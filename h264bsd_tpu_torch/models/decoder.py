@@ -450,9 +450,7 @@ class Decoder:
             _frame_decode_body(row, self._dpb, None, **args)
             count("eager_frames")
             return
-        key = (prep["w_mbs"], prep["h_mbs"], self._dpb[0].shape[0],
-               prep["caps"], row.shape[0], prep["wavefront"],
-               prep["has_inter"])
+        key = self._graph_key(prep, row)
         graph = self._graphs.get(key)
         if graph is not None:
             graph.replay(row)
@@ -463,6 +461,14 @@ class Decoder:
         self._graphs[key] = FrameGraph(
             partial(_frame_decode_body, dpb=self._dpb, pcm=None, **args),
             row, self._pool, self._side)
+
+    def _graph_key(self, prep, row):
+        """The key of the graph that decodes a windowable frame from its
+        input row: geometry, ring slots, caps, row length, intra class
+        and whether it references a slot."""
+        return (prep["w_mbs"], prep["h_mbs"], self._dpb[0].shape[0],
+                prep["caps"], row.shape[0], prep["wavefront"],
+                prep["has_inter"])
 
     def _decode_step(self, prep):
         """One windowable frame through its graph (the JAX package's
@@ -829,21 +835,20 @@ def frame_checksum_device(y, cb, cr, n_trunc: int) -> torch.Tensor:
     return (x * w).sum() & 0xFFFFFFFF
 
 
-def benchmark_stream(data: bytes, want_checksums, repeats: int = 5,
-                     device=None, budget_s: float | None = None,
+def benchmark_passes(run, want_checksums, device, repeats: int = 5,
+                     budget_s: float | None = None,
                      n_trunc: int | None = None) -> dict:
-    """Decode `data` with decode_stream on `device` (see Decoder): first a
-    verification pass, whose per-picture checksums (frame_checksum_device
-    over each picture's first n_trunc bytes, the whole picture when None)
-    are computed on the device and read back once, against
-    want_checksums; then, only when every picture matched, `repeats`
-    timed passes, and more until they have taken budget_s seconds when
-    it is given. The verification pass takes the CUDA graph captures:
-    the timed passes decode with the same Decoder (decode_stream's
-    decoder=), restarted, and replay them. Each timed pass keeps its
-    pictures and ends in torch.cuda.synchronize() on the card; after its
-    clock stops, its pictures are checksummed on the device as the
-    verification pass's were, and a pass that differs ends the timing.
+    """Time a decode on `device` (a torch.device) that run() makes once
+    per call, returning the (y, cb, cr) planes of its pictures in order:
+    first a verification pass, whose per-picture checksums
+    (frame_checksum_device over each picture's first n_trunc bytes, the
+    whole picture when None) are computed on the device and read back
+    once, against want_checksums; then, only when every picture matched,
+    `repeats` timed passes, and more until they have taken budget_s
+    seconds when it is given. Each timed pass keeps its pictures and
+    ends in torch.cuda.synchronize() on the card; after its clock stops,
+    its pictures are checksummed on the device as the verification
+    pass's were, and a pass that differs ends the timing.
 
     Returns {"bit_exact" (every pass matched), "pictures", "cold_fps" (the
     verification pass, its captures and checksums included), "captures",
@@ -852,52 +857,66 @@ def benchmark_stream(data: bytes, want_checksums, repeats: int = 5,
     "fps_all" (all the timed passes' pictures over all their seconds),
     "timed_s"}; when a pass differs, "runs" is empty and "fps", "median"
     and "fps_all" are None."""
-    dev = resolve_device(device)
-    dec = Decoder(caps_pin=pin_caps_for_stream(data), slot_margin=WINDOW,
-                  device=dev)
     want = list(want_checksums)
 
     def checksums(pics):
-        sums = [frame_checksum_device(*p.planes, n_trunc or sum(
-            q.numel() for q in p.planes)) for p in pics]
+        sums = [frame_checksum_device(*planes, n_trunc or sum(
+            q.numel() for q in planes)) for planes in pics]
         return torch.stack(sums).cpu().tolist() if sums else []
 
-    try:
+    reset_stats()
+    t0 = time.perf_counter()
+    got = checksums(run())
+    cold_s = time.perf_counter() - t0
+    out = {"bit_exact": got == want, "pictures": len(got),
+           "cold_fps": len(got) / cold_s,
+           "captures": STATS["graph_captures"],
+           "capture_ms": STATS["capture_ms"]}
+    runs, n_all, timed_s = [], 0, 0.0
+    if out["bit_exact"]:
         reset_stats()
-        t0 = time.perf_counter()
-        got = checksums(decode_stream(data, decoder=dec))
-        cold_s = time.perf_counter() - t0
-        out = {"bit_exact": got == want, "pictures": len(got),
-               "cold_fps": len(got) / cold_s,
-               "captures": STATS["graph_captures"],
-               "capture_ms": STATS["capture_ms"]}
-        runs, n_all, timed_s = [], 0, 0.0
-        if out["bit_exact"]:
-            reset_stats()
-            while len(runs) < repeats or (budget_s is not None
-                                          and timed_s < budget_s):
-                t0 = time.perf_counter()
-                pics = list(decode_stream(data, decoder=dec))
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                dt = time.perf_counter() - t0
-                if checksums(pics) != want:
-                    out["bit_exact"] = False
-                    out["failed_pass"] = len(runs)
-                    runs = []
-                    break
-                timed_s += dt
-                n_all += len(pics)
-                runs.append(len(pics) / dt)
-            out["timed_captures"] = STATS["graph_captures"]
-    finally:
-        dec.close()
+        while len(runs) < repeats or (budget_s is not None
+                                      and timed_s < budget_s):
+            t0 = time.perf_counter()
+            pics = run()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            dt = time.perf_counter() - t0
+            if checksums(pics) != want:
+                out["bit_exact"] = False
+                out["failed_pass"] = len(runs)
+                runs = []
+                break
+            timed_s += dt
+            n_all += len(pics)
+            runs.append(len(pics) / dt)
+        out["timed_captures"] = STATS["graph_captures"]
     out["runs"] = runs
     out["fps"] = max(runs) if runs else None
     out["median"] = float(np.median(runs)) if runs else None
     out["fps_all"] = n_all / timed_s if runs else None
     out["timed_s"] = timed_s
     return out
+
+
+def benchmark_stream(data: bytes, want_checksums, repeats: int = 5,
+                     device=None, budget_s: float | None = None,
+                     n_trunc: int | None = None) -> dict:
+    """Decode `data` with decode_stream on `device` (see Decoder) under
+    benchmark_passes: a verification pass checksummed on the device,
+    then, only when bit-exact, timed passes (see there for the record it
+    returns). The verification pass takes the CUDA graph captures: the
+    timed passes decode with the same Decoder (decode_stream's
+    decoder=), restarted, and replay them."""
+    dev = resolve_device(device)
+    dec = Decoder(caps_pin=pin_caps_for_stream(data), slot_margin=WINDOW,
+                  device=dev)
+    try:
+        return benchmark_passes(
+            lambda: [p.planes for p in decode_stream(data, decoder=dec)],
+            want_checksums, dev, repeats, budget_s, n_trunc)
+    finally:
+        dec.close()
 
 
 def benchmark_decode(stream_name: str, repeats: int = 5, device=None):

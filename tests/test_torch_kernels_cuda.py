@@ -10,6 +10,7 @@ JAX, which the port's GPU machine does not have; run there with
       -o addopts=""
 """
 
+import json
 import subprocess
 import sys
 from pathlib import Path
@@ -751,3 +752,35 @@ def test_frame_checksum_device_on_the_card(dev):
             assert got.device.type == "cuda"
             assert int(got) == frame_checksum_host(
                 b"".join(p.tobytes() for p in planes)[:n])
+
+
+# the corrupted streams of reference_checksums.json (fuzz_<base>_s<seed>)
+_REF = json.loads(
+    (Path(__file__).parents[1] / "h264bsd_tpu_torch" / "testdata" /
+     "reference_checksums.json").read_text())
+FUZZ = sorted(k for k in _REF if k.startswith("fuzz_"))
+
+
+@pytest.mark.parametrize("name", FUZZ)
+def test_corrupted_stream_on_the_card(dev, name):
+    """A corrupted stream's decode on the card: every picture's checksum
+    equal to the recorded one and, but for the 1080p streams (whose plain
+    versions take minutes on the CPU; tests/test_torch_fuzz.py holds the
+    4x4 ones to the same checksums there), byte-equal to the port's
+    decode on the CPU. The dependency-driven kernels wait on flags a
+    corrupted stream's lists and classes set: a wait that never ends
+    traps."""
+    import hashlib
+
+    from h264bsd_tpu_torch.models.decoder import (decode_stream,
+                                                  frame_checksum_host)
+    from h264bsd_tpu_torch.utils.recorded import make_recorded_stream
+
+    data = make_recorded_stream(_REF[name])
+    assert hashlib.sha256(data).hexdigest() == _REF[name]["sha256"]
+    got = [p.yuv_bytes() for p in decode_stream(data, device=dev)]
+    torch.cuda.synchronize()
+    assert [frame_checksum_host(g) for g in got] == _REF[name]["checksums"]
+    if "1080p" not in name:
+        assert got == [p.yuv_bytes()
+                       for p in decode_stream(data, device="cpu")]

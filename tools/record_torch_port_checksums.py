@@ -21,6 +21,10 @@ Usage:
 --check recomputes and exits non-zero if the file differs; --only limits
 the work to the named entries (the 720p/1080p decodes take minutes on the
 CPU).
+
+The fuzz_* entries (FUZZ_SEEDS) are corrupted copies of other entries,
+decoded with pipelined=False; where the JAX package raises on one, the
+entry records the exception's type under "raises" and no checksums.
 """
 
 from __future__ import annotations
@@ -120,7 +124,34 @@ STREAMS = {
     "bench_motion_1080p": dict(module="motion_stream",
                                maker="make_motion_stream",
                                args=[120, 68, 16], kwargs=dict(seed=0)),
+    # BASELINE.json config 5 cut to N = 8 streams of 40x23 MBs (640x360,
+    # tools/bench_configs_torch.py): motion seeds 0-3 between IPPP
+    # streams at four QPs, 16 pictures each, a motion stream first (its
+    # DPB sizes the shared ring)
+    **{f"ms360_{k}": dict(module="motion_stream", maker="make_motion_stream",
+                          args=[40, 23, 16], kwargs=dict(seed=k // 2))
+       if k % 2 == 0 else
+       dict(maker="make_ippp_stream", args=[40, 23, 16],
+            kwargs=dict(qp=(26, 30, 34, 22)[k // 2]))
+       for k in range(8)},
 }
+
+# corrupted copies of these entries ("corrupt": 1-4 flipped bytes drawn
+# from the seed, utils/recorded.py corrupt), named fuzz_<base>_s<seed>:
+# every P path, FMO, I_PCM, frame_num gaps and redundant slices at 4x4;
+# the raster deblock on a 2x68 strip; the intra wavefront and the
+# spiral concealment at 1080p; MC, sparse intra lists and the wavefront
+# deblock on 1080p P pictures
+FUZZ_SEEDS = {
+    **{base: range(4) for base in (
+        "ippp_4x4", "motion_6x4", "six_ref_cycle", "longterm",
+        "frame_num_gap", "slice_groups", "pcm", "intra_in_p_constrained",
+        "redundant")},
+    "ippp_2x68": range(2), "intra_1080p": range(2),
+    "ippp_1080p": range(3), "motion_1080p": range(3)}
+STREAMS.update({f"fuzz_{base}_s{seed}": dict(STREAMS[base],
+                                             corrupt=dict(seed=seed))
+                for base, seeds in FUZZ_SEEDS.items() for seed in seeds})
 
 
 def sei_messages(data, jdec) -> list:
@@ -158,10 +189,19 @@ def record(names) -> dict:
         entry = STREAMS[name]
         t0 = time.perf_counter()
         data = make_recorded_stream(entry, modules)
-        sums = [frame_checksum_host(p.yuv_bytes())
-                for p in decode_stream(data)]
-        out[name] = {**entry, "sha256": hashlib.sha256(data).hexdigest(),
-                     "checksums": sums}
+        out[name] = {**entry, "sha256": hashlib.sha256(data).hexdigest()}
+        # a corrupted stream may change its geometry mid-stream, which
+        # the pipelined decode_stream of the JAX package does not follow
+        pipelined = "corrupt" not in entry
+        try:
+            sums = [frame_checksum_host(p.yuv_bytes())
+                    for p in decode_stream(data, pipelined=pipelined)]
+        except Exception as exc:
+            # no oracle for this stream: the entry says what was raised
+            out[name]["raises"] = type(exc).__name__
+            print(f"{name}: {type(exc).__name__}: {exc}", file=sys.stderr)
+            continue
+        out[name]["checksums"] = sums
         if entry.get("sei"):
             out[name]["sei_messages"] = sei_messages(data, jdec)
         print(f"{name}: {len(sums)} pictures in "
