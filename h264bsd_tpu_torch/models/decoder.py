@@ -41,6 +41,7 @@ from ..ops.cuda_deblock_wf import deblock_frame_wavefront
 from ..ops.reconstruct import (WF_THRESH, build_pcm_tensors,
                                reconstruct_frame_fast)
 from ..ops.unpack import compact_blob_words, unpack_blob, widen_words
+from ..utils.profiling import span
 from .graphs import STATS, FrameGraph, count, reset_stats
 from .state import new_ring, tensor_from_numpy
 
@@ -297,7 +298,7 @@ class Decoder:
     def decode(self, data, pic_id: int = 0, offset: int = 0,
                length: int | None = None):
         """Decode one NAL unit; returns (status, bytes_consumed)."""
-        status, read = self._fe.decode(data, pic_id, offset, length)
+        status, read = self._parse(data, pic_id, offset, length)
         if status == fe.HDRS_RDY:
             self._geom = self._fe.stream_info()
             self._set_ring(None)  # realloc lazily at the next picture
@@ -308,6 +309,12 @@ class Decoder:
             else:
                 self._submit(prep)
         return status, read
+
+    def _parse(self, data, pic_id, offset, length=None):
+        """The C++ front-end's decode of one NAL unit: (status,
+        bytes_consumed)."""
+        with span("h264.parse"):
+            return self._fe.decode(data, pic_id, offset, length)
 
     def _set_ring(self, ring):
         """Replace the DPB ring; the graphs captured over the old one go
@@ -345,54 +352,56 @@ class Decoder:
     def _prepare(self):
         """Host-only half of a frame: gather everything the device step
         needs (no device work, so it may run on a parse-ahead thread)."""
-        # read afresh: the ring size (dpb_slots) is known only once the
-        # first slice has activated the DPB, after HDRS_RDY
-        g = self._fe.stream_info()
-        self._geom = g
-        info = self._fe.pic_info()
-        w_mbs, h_mbs = g["width_mbs"], g["height_mbs"]
-        n_mbs = w_mbs * h_mbs
-        non_existing = self._fe.take_non_existing()
-        counts = tuple(int(x) for x in self._fe.blob_counts())
-        n_slices = counts[6]
-        # sparse intra -> list kernel; intra-heavy -> wavefront kernel
-        wavefront = counts[5] > WF_THRESH
+        with span("h264.prepare"):
+            # read afresh: the ring size (dpb_slots) is known only once the
+            # first slice has activated the DPB, after HDRS_RDY
+            g = self._fe.stream_info()
+            self._geom = g
+            info = self._fe.pic_info()
+            w_mbs, h_mbs = g["width_mbs"], g["height_mbs"]
+            n_mbs = w_mbs * h_mbs
+            non_existing = self._fe.take_non_existing()
+            counts = tuple(int(x) for x in self._fe.blob_counts())
+            n_slices = counts[6]
+            # sparse intra -> list kernel; intra-heavy -> wavefront kernel
+            wavefront = counts[5] > WF_THRESH
 
-        def fits(p):
-            return (all(counts[k] <= p[k] for k in range(7))
-                    and (n_slices <= 1 or p[7] > 0))
+            def fits(p):
+                return (all(counts[k] <= p[k] for k in range(7))
+                        and (n_slices <= 1 or p[7] > 0))
 
-        pin = None
-        if self._caps_pin is not None and wavefront in self._caps_pin:
-            # first pinned (caps, total_words) tier the frame fits
-            for caps_p, tot_p in self._caps_pin[wavefront]:
-                if fits(caps_p) and compact_blob_words(
-                        counts, n_mbs, caps_p)[1] <= tot_p:
-                    pin = (caps_p, tot_p)
-                    break
-        if pin is not None:
-            caps, total_w = pin
-        else:
-            # sticky caps: tier over the max counts of the last 8 frames of
-            # this wavefront class, as the JAX package does, so both ship
-            # the same blob bytes
-            hist = self._cap_hist.setdefault(wavefront, [])
-            hist.append(counts)
-            del hist[:-8]
-            mx = [max(h[k] for h in hist) for k in range(7)]
-            caps = caps_from_counts(mx, n_mbs, wavefront)
-            _, need_w = compact_blob_words(mx, n_mbs, caps)
-            total_w = tier(need_w, ladder(8192, 12) + (need_w,))
-        blob = self._fe.blob_compact(*caps, total_w * 4)
-        return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
-                    n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
-                    has_inter=info["used_slot_count"] > 0,
-                    ipcm=self._fe.ipcm(),
-                    non_existing=non_existing)
+            pin = None
+            if self._caps_pin is not None and wavefront in self._caps_pin:
+                # first pinned (caps, total_words) tier the frame fits
+                for caps_p, tot_p in self._caps_pin[wavefront]:
+                    if fits(caps_p) and compact_blob_words(
+                            counts, n_mbs, caps_p)[1] <= tot_p:
+                        pin = (caps_p, tot_p)
+                        break
+            if pin is not None:
+                caps, total_w = pin
+            else:
+                # sticky caps: tier over the max counts of the last 8 frames of
+                # this wavefront class, as the JAX package does, so both ship
+                # the same blob bytes
+                hist = self._cap_hist.setdefault(wavefront, [])
+                hist.append(counts)
+                del hist[:-8]
+                mx = [max(h[k] for h in hist) for k in range(7)]
+                caps = caps_from_counts(mx, n_mbs, wavefront)
+                _, need_w = compact_blob_words(mx, n_mbs, caps)
+                total_w = tier(need_w, ladder(8192, 12) + (need_w,))
+            blob = self._fe.blob_compact(*caps, total_w * 4)
+            return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
+                        n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
+                        has_inter=info["used_slot_count"] > 0,
+                        ipcm=self._fe.ipcm(),
+                        non_existing=non_existing)
 
     def _stage(self, preps):
         """The frames' input rows on the decoder's device (stage_rows)."""
-        return stage_rows(preps, self.device)
+        with span("h264.stage"):
+            return stage_rows(preps, self.device)
 
     @staticmethod
     def _body_args(prep):
@@ -418,27 +427,28 @@ class Decoder:
     def _submit(self, prep):
         """Device half of a frame, eagerly: transfer the blob and run the
         body (the frames _windowable rejects)."""
-        n_mbs = prep["n_mbs"]
-        self._ensure_dpb(prep["geom"])
-        dev = self.device
+        with span("h264.eager"):
+            n_mbs = prep["n_mbs"]
+            self._ensure_dpb(prep["geom"])
+            dev = self.device
 
-        # zero-fill slots of synthesized non-existing frames (the reference
-        # leaves them as uninitialized memory; the JAX package zeroes them)
-        for slot in prep["non_existing"]:
-            for plane in self._dpb:
-                plane[slot].zero_()
+            # zero-fill slots of synthesized non-existing frames (the reference
+            # leaves them as uninitialized memory; the JAX package zeroes them)
+            for slot in prep["non_existing"]:
+                for plane in self._dpb:
+                    plane[slot].zero_()
 
-        ipcm_mb, ipcm_data = prep["ipcm"]
-        pcm = None
-        if len(ipcm_mb):
-            pcm = tuple(torch.from_numpy(p).to(dev) for p in
-                        build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data))
-        # a partial loss without a usable reference needs the exact spiral
-        # concealment (host); a partial loss with one and the whole-picture
-        # cases stay on the device (both exact)
-        _frame_decode_body(self._stage([prep])[0], self._dpb, pcm,
-                           **self._body_args(prep), spiral=spiral_of(prep))
-        count("eager_frames")
+            ipcm_mb, ipcm_data = prep["ipcm"]
+            pcm = None
+            if len(ipcm_mb):
+                pcm = tuple(torch.from_numpy(p).to(dev) for p in
+                            build_pcm_tensors(n_mbs, ipcm_mb, ipcm_data))
+            # a partial loss without a usable reference needs the exact spiral
+            # concealment (host); a partial loss with one and the whole-picture
+            # cases stay on the device (both exact)
+            _frame_decode_body(self._stage([prep])[0], self._dpb, pcm,
+                               **self._body_args(prep), spiral=spiral_of(prep))
+            count("eager_frames")
 
     def _run_graphed(self, prep, row):
         """Decode a windowable frame from its input row on the device:
@@ -447,7 +457,8 @@ class Decoder:
         eagerly."""
         args = self._body_args(prep)
         if self.device.type == "cpu":
-            _frame_decode_body(row, self._dpb, None, **args)
+            with span("h264.eager"):
+                _frame_decode_body(row, self._dpb, None, **args)
             count("eager_frames")
             return
         key = self._graph_key(prep, row)
@@ -496,14 +507,15 @@ class Decoder:
         the released pictures in order."""
         pics = []
         i = 0
-        while len(items) - i > 1:
-            k = next(k for k in (16, 8, 4, 2) if k <= len(items) - i)
-            pics += self._decode_window_step(items[i:i + k])
-            i += k
-        if len(items) - i:
-            prep, outs = items[i]
-            self._decode_step(prep)
-            pics += [self._make_output(o, prep["geom"]) for o in outs]
+        with span("h264.flush"):
+            while len(items) - i > 1:
+                k = next(k for k in (16, 8, 4, 2) if k <= len(items) - i)
+                pics += self._decode_window_step(items[i:i + k])
+                i += k
+            if len(items) - i:
+                prep, outs = items[i]
+                self._decode_step(prep)
+                pics += [self._make_output(o, prep["geom"]) for o in outs]
         return pics
 
     # -- output ------------------------------------------------------------
@@ -524,12 +536,13 @@ class Decoder:
         crop = (g["crop_left"], g["crop_width"], g["crop_top"],
                 g["crop_height"]) if g["crop_flag"] else \
             (0, g["width_mbs"] * 16, 0, g["height_mbs"] * 16)
+        with span("h264.output"):
+            planes = tuple(p[out["slot"]].clone() for p in self._dpb)
         return OutputPicture(
             pic_id=out["pic_id"], is_idr=bool(out["is_idr"]),
             num_err_mbs=out["num_err_mbs"],
             width=g["width_mbs"] * 16, height=g["height_mbs"] * 16,
-            crop=crop, planes=tuple(p[out["slot"]].clone()
-                                    for p in self._dpb),
+            crop=crop, planes=planes,
             full_range=bool(g.get("full_range", 0)))
 
     # -- metadata (reference decoder.c:771-1105) ---------------------------
@@ -704,19 +717,20 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
     stop = threading.Event()
 
     def put(item):
-        while not stop.is_set():
-            try:
-                q.put(item, timeout=0.1)
-                return
-            except queue.Full:
-                pass
+        with span("h264.queue_put"):
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return
+                except queue.Full:
+                    pass
 
     def producer():
         try:
             pos = 0
             n_out = 0
             while pos < len(data) and not stop.is_set():
-                status, read = dec._fe.decode(data, n_out, pos)
+                status, read = dec._parse(data, n_out, pos)
                 pos += read
                 if status == fe.HDRS_RDY:
                     # geometry changes flow through the queue so pending
@@ -766,7 +780,8 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
     done = False
     try:
         while not done:
-            item = q.get()
+            with span("h264.queue_wait"):
+                item = q.get()
             while True:
                 if item is None:
                     done = True

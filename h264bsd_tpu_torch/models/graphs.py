@@ -34,6 +34,7 @@ import time
 import torch
 
 from ..ops import _kernels
+from ..utils.profiling import span
 
 # frames decoded by a capture's eager first run, by replays, and by the
 # eager body outside any graph (frames that cannot be graphed, and every
@@ -71,7 +72,7 @@ class FrameGraph:
     frees in `pool` serves the next."""
 
     def __init__(self, body, row, pool, side):
-        with _capture_lock(row.device):
+        with span("h264.capture"), _capture_lock(row.device):
             t0 = time.perf_counter()
             self.row = row.clone()
             cur = torch.cuda.current_stream(row.device)
@@ -98,7 +99,8 @@ class FrameGraph:
 
     def replay(self, row) -> None:
         """Decode the frame of `row` (same key) by replaying the graph."""
-        self.row.copy_(row)
-        self.graph.replay()
+        with span("h264.replay"):
+            self.row.copy_(row)
+            self.graph.replay()
         _kernels.add_launches(self.launches)
         count("graph_replays")
