@@ -3,12 +3,31 @@
 from __future__ import annotations
 
 import ctypes as ct
+import threading
 
 import numpy as np
 
 from .build import build
 
 _lib = None
+
+# Front-end counters, beside models/graphs.py STATS. pictures_pooled:
+# pictures whose slice data ran ahead on a pool's workers; pictures_serial:
+# pictures of a pooled front-end parsed in order instead (multi-slice,
+# FMO, redundant or lost slices); pool_waits: takes that blocked on a
+# picture's job; packed_builds: packed-record builds, one a picture.
+STATS = {"pictures_pooled": 0, "pictures_serial": 0, "pool_waits": 0,
+         "packed_builds": 0}
+_builds_seen = [0]
+_builds_lock = threading.Lock()
+
+
+def _count_builds() -> None:
+    """Bring STATS["packed_builds"] up to the library's count."""
+    with _builds_lock:
+        n = lib().h264tpu_packed_builds()
+        STATS["packed_builds"] += n - _builds_seen[0]
+        _builds_seen[0] = n
 
 
 def lib() -> ct.CDLL:
@@ -82,6 +101,32 @@ def _configure(L: ct.CDLL) -> None:
     L.h264tpu_sps_hrd.argtypes = [
         ct.c_void_p, ct.c_uint32,
         np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")]
+    L.h264tpu_packed_builds.restype = ct.c_uint64
+    L.h264tpu_packed_builds.argtypes = []
+    for name in ("pool_start", "pool_stop", "pool_finish"):
+        getattr(L, "h264tpu_" + name).restype = None
+        getattr(L, "h264tpu_" + name).argtypes = [ct.c_void_p]
+    for name in ("pool_next_job", "pool_take"):
+        getattr(L, "h264tpu_" + name).restype = ct.c_void_p
+        getattr(L, "h264tpu_" + name).argtypes = [ct.c_void_p]
+    for name in ("pool_run_job", "pool_release"):
+        getattr(L, "h264tpu_" + name).restype = None
+        getattr(L, "h264tpu_" + name).argtypes = [ct.c_void_p, ct.c_void_p]
+    L.h264tpu_pool_poll.restype = None
+    L.h264tpu_pool_poll.argtypes = [
+        ct.c_void_p, np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")]
+    # a taken picture's reads: the instance calls of the same names
+    for name in ("stream_info", "pic_info", "tensor", "blob", "blob_compact",
+                 "take_non_existing"):
+        src = getattr(L, "h264tpu_" + name)
+        dst = getattr(L, "h264tpu_picture_" + name)
+        dst.restype, dst.argtypes = src.restype, src.argtypes
+    L.h264tpu_picture_outputs.restype = ct.c_uint32
+    L.h264tpu_picture_outputs.argtypes = [
+        ct.c_void_p, np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS"),
+        ct.c_uint32]
+    L.h264tpu_picture_pooled.restype = ct.c_uint32
+    L.h264tpu_picture_pooled.argtypes = [ct.c_void_p]
     L.h264tpu_dev_parse_sps.restype = ct.c_uint32
     L.h264tpu_dev_parse_sps.argtypes = [
         ct.c_char_p, ct.c_uint32,
@@ -135,7 +180,83 @@ _TENSORS = {
 }
 
 
-class FrontendDecoder:
+class _Reads:
+    """The reads Decoder._prepare makes of one picture's front-end output,
+    through the C calls named _PREFIX + name: the decoder instance's
+    current picture (FrontendDecoder) or a picture taken from its pool
+    (PooledPicture)."""
+
+    _PREFIX = "h264tpu_"
+
+    def _c(self, name):
+        return getattr(self._lib, self._PREFIX + name)
+
+    def stream_info(self) -> dict:
+        out = np.zeros(16, np.uint32)
+        self._c("stream_info")(self._h, out)
+        keys = ["width_mbs", "height_mbs", "dpb_slots", "crop_flag",
+                "crop_left", "crop_width", "crop_top", "crop_height",
+                "sar_width", "sar_height", "profile", "full_range",
+                "n_slots", "matrix_coefficients", "slot_margin"]
+        return dict(zip(keys, out[:15].tolist()))
+
+    def pic_info(self) -> dict:
+        out = np.zeros(16, np.int32)
+        self._c("pic_info")(self._h, out)
+        keys = ["slot", "pic_id", "is_idr", "poc", "frame_num",
+                "num_concealed_mbs", "slice_type", "conceal_from_ref",
+                "conceal_ref_slot", "mv_min_x", "mv_min_y", "mv_max_x",
+                "mv_max_y", "used_slot_count", "used_slot_mask"]
+        return dict(zip(keys, out[:15].tolist()))
+
+    def ipcm(self) -> tuple[np.ndarray, np.ndarray]:
+        size = ct.c_uint64(0)
+        ptr = self._c("tensor")(self._h, 19, ct.byref(size))
+        if size.value == 0:
+            return np.zeros(0, np.uint32), np.zeros((0, 384), np.uint8)
+        mbs = np.frombuffer((ct.c_char * size.value).from_address(ptr),
+                            dtype=np.uint32).copy()
+        ptr = self._c("tensor")(self._h, 20, ct.byref(size))
+        data = np.frombuffer((ct.c_char * size.value).from_address(ptr),
+                             dtype=np.uint8).copy()
+        return mbs, data.reshape(-1, 384)
+
+    def blob_counts(self):
+        """[n_single, n_short, n_full, n_wide, n_exc, n_intra, n_slices]
+        for tier selection; builds + classifies the picture's packed
+        records unless they are built (once a picture)."""
+        counts = np.zeros(7, np.uint32)
+        size = ct.c_uint64(0)
+        self._c("blob")(self._h, 0, 0, 0, 0, 0, 0, 0, 0, counts,
+                        ct.byref(size))
+        _count_builds()
+        return counts
+
+    def blob_compact(self, single_cap, short_cap, full_cap, wide_cap,
+                     exc_cap, intra_cap, stab_cap, sid_cap,
+                     total_bytes) -> np.ndarray:
+        """Compact transfer blob: sections at their REAL counts behind a
+        64-byte count header, zero-padded to total_bytes (layout:
+        build_blob_compact, mbparse.cpp). Transfer volume tracks content
+        instead of the caps; the device derives offsets from the header
+        and masks entries beyond the counts (ops.unpack)."""
+        size = ct.c_uint64(0)
+        ptr = self._c("blob_compact")(
+            self._h, single_cap, short_cap, full_cap, wide_cap, exc_cap,
+            intra_cap, stab_cap, sid_cap, total_bytes, ct.byref(size))
+        _count_builds()
+        buf = (ct.c_char * size.value).from_address(ptr)
+        # copy: the C++ blob buffer is reused by the next frame while this
+        # one may still be in flight to the device
+        return np.frombuffer(buf, dtype=np.uint8).copy()
+
+    def take_non_existing(self) -> list[int]:
+        out = np.zeros(32, np.int32)
+        n = self._c("take_non_existing")(self._h, out, 32)
+        return out[:n].tolist()
+
+
+class FrontendDecoder(_Reads):
     """Host bitstream front-end instance (C++), reference-equivalent control
     surface (h264bsd_decoder.h:64-93). Emits per-picture MB tensors for the
     device reconstruction pipeline."""
@@ -158,9 +279,11 @@ class FrontendDecoder:
             (2 if intra_concealment else 0) | \
             ((min(max(int(slot_margin), 0), 255) & 0xFF) << 8)
         self._h = self._lib.h264tpu_create(flags)
+        self._workers = []
 
     def close(self) -> None:
         if self._h:
+            self.pool_stop()
             self._lib.h264tpu_destroy(self._h)
             self._h = None
 
@@ -190,24 +313,6 @@ class FrontendDecoder:
                           # resizes the underlying bytearray
         return status, read.value
 
-    def stream_info(self) -> dict:
-        out = np.zeros(16, np.uint32)
-        self._lib.h264tpu_stream_info(self._h, out)
-        keys = ["width_mbs", "height_mbs", "dpb_slots", "crop_flag",
-                "crop_left", "crop_width", "crop_top", "crop_height",
-                "sar_width", "sar_height", "profile", "full_range",
-                "n_slots", "matrix_coefficients", "slot_margin"]
-        return dict(zip(keys, out[:15].tolist()))
-
-    def pic_info(self) -> dict:
-        out = np.zeros(16, np.int32)
-        self._lib.h264tpu_pic_info(self._h, out)
-        keys = ["slot", "pic_id", "is_idr", "poc", "frame_num",
-                "num_concealed_mbs", "slice_type", "conceal_from_ref",
-                "conceal_ref_slot", "mv_min_x", "mv_min_y", "mv_max_x",
-                "mv_max_y", "used_slot_count", "used_slot_mask"]
-        return dict(zip(keys, out[:15].tolist()))
-
     def tensor(self, name: str, n_mbs: int) -> np.ndarray:
         """Copy of a per-frame tensor shaped (n_mbs, *per_mb_shape).
         The residual tensors are synthesized from the sparse stream (the
@@ -225,7 +330,7 @@ class FrontendDecoder:
             return dense[:, 25, :8].copy()
         tid, dtype, shape = _TENSORS[name]
         size = ct.c_uint64(0)
-        ptr = self._lib.h264tpu_tensor(self._h, tid, ct.byref(size))
+        ptr = self._c("tensor")(self._h, tid, ct.byref(size))
         count = size.value // np.dtype(dtype).itemsize
         buf = (ct.c_char * size.value).from_address(ptr)
         arr = np.frombuffer(buf, dtype=dtype, count=count).copy()
@@ -234,21 +339,9 @@ class FrontendDecoder:
     def tensors(self, n_mbs: int) -> dict:
         return {name: self.tensor(name, n_mbs) for name in _TENSORS}
 
-    def ipcm(self) -> tuple[np.ndarray, np.ndarray]:
-        size = ct.c_uint64(0)
-        ptr = self._lib.h264tpu_tensor(self._h, 19, ct.byref(size))
-        if size.value == 0:
-            return np.zeros(0, np.uint32), np.zeros((0, 384), np.uint8)
-        mbs = np.frombuffer((ct.c_char * size.value).from_address(ptr),
-                            dtype=np.uint32).copy()
-        ptr = self._lib.h264tpu_tensor(self._h, 20, ct.byref(size))
-        data = np.frombuffer((ct.c_char * size.value).from_address(ptr),
-                             dtype=np.uint8).copy()
-        return mbs, data.reshape(-1, 384)
-
     def _raw(self, tid, dtype):
         size = ct.c_uint64(0)
-        ptr = self._lib.h264tpu_tensor(self._h, tid, ct.byref(size))
+        ptr = self._c("tensor")(self._h, tid, ct.byref(size))
         if size.value == 0:
             return np.zeros(0, dtype)
         buf = (ct.c_char * size.value).from_address(ptr)
@@ -258,7 +351,8 @@ class FrontendDecoder:
         """Single-buffer per-MB metadata (layout: FrameTensors::build_packed
         in mbparse.cpp). Also refreshes the intra-MB list."""
         size = ct.c_uint64(0)
-        ptr = self._lib.h264tpu_packed(self._h, ct.byref(size))
+        ptr = self._c("packed")(self._h, ct.byref(size))
+        _count_builds()
         buf = (ct.c_char * size.value).from_address(ptr)
         return np.frombuffer(buf, dtype=np.uint8).copy()
 
@@ -271,33 +365,6 @@ class FrontendDecoder:
     def intra_list(self) -> np.ndarray:
         """Raster-ordered intra MB indices (valid after packed_meta())."""
         return self._raw(25, np.uint32)
-
-    def blob_counts(self):
-        """[n_single, n_short, n_full, n_wide, n_exc, n_intra, n_slices]
-        for tier selection; also (re)builds + classifies the packed
-        records."""
-        counts = np.zeros(7, np.uint32)
-        size = ct.c_uint64(0)
-        self._lib.h264tpu_blob(self._h, 0, 0, 0, 0, 0, 0, 0, 0, counts,
-                               ct.byref(size))
-        return counts
-
-    def blob_compact(self, single_cap, short_cap, full_cap, wide_cap,
-                     exc_cap, intra_cap, stab_cap, sid_cap,
-                     total_bytes) -> np.ndarray:
-        """Compact transfer blob: sections at their REAL counts behind a
-        64-byte count header, zero-padded to total_bytes (layout:
-        build_blob_compact, mbparse.cpp). Transfer volume tracks content
-        instead of the caps; the device derives offsets from the header
-        and masks entries beyond the counts (ops.unpack)."""
-        size = ct.c_uint64(0)
-        ptr = self._lib.h264tpu_blob_compact(
-            self._h, single_cap, short_cap, full_cap, wide_cap, exc_cap,
-            intra_cap, stab_cap, sid_cap, total_bytes, ct.byref(size))
-        buf = (ct.c_char * size.value).from_address(ptr)
-        # copy: the C++ blob buffer is reused by the next frame while this
-        # one may still be in flight to the device
-        return np.frombuffer(buf, dtype=np.uint8).copy()
 
     def slice_table(self) -> np.ndarray:
         return self._raw(26, np.int8).reshape(-1, 4)
@@ -365,7 +432,92 @@ class FrontendDecoder:
         return {"slot": int(out[0]), "pic_id": int(out[1]),
                 "is_idr": int(out[2]), "num_err_mbs": int(out[3])}
 
-    def take_non_existing(self) -> list[int]:
-        out = np.zeros(32, np.int32)
-        n = self._lib.h264tpu_take_non_existing(self._h, out, 32)
-        return out[:n].tolist()
+    # -- pool mode (Decoder::start_pool, csrc/decoder.h) ---------------------
+
+    def pool_start(self, workers: int) -> None:
+        """Parse pictures in parallel from here on, on `workers` threads:
+        decode() holds a picture's first slice and returns PIC_RDY (with
+        the NAL to decode again) when a picture has ended; its slice data,
+        concealment and packed records run on a worker meanwhile, each
+        job under an h264.parse span. Take the ended pictures in decode
+        order with pool_take. Call before the first NAL."""
+        from ..utils.profiling import span
+
+        L, h = self._lib, self._h
+        L.h264tpu_pool_start(h)
+
+        def work():
+            while pic := L.h264tpu_pool_next_job(h):
+                with span("h264.parse"):
+                    L.h264tpu_pool_run_job(h, pic)
+
+        self._workers = [threading.Thread(target=work, daemon=True,
+                                          name=f"h264-parse-{i}")
+                         for i in range(workers)]
+        for t in self._workers:
+            t.start()
+
+    def pool_stop(self) -> None:
+        """Stop the pool's workers (each finishes the job it runs)."""
+        if self._workers:
+            self._lib.h264tpu_pool_stop(self._h)
+            for t in self._workers:
+                t.join()
+            self._workers = []
+
+    def pool_poll(self) -> tuple[int, bool, int]:
+        """(ended pictures not yet taken, whether the oldest one's job is
+        done, output pictures queued so far: the pic_id the serial
+        decode loop would pass)."""
+        out = np.zeros(3, np.uint32)
+        self._lib.h264tpu_pool_poll(self._h, out)
+        return int(out[0]), bool(out[1]), int(out[2])
+
+    def pool_take(self) -> "PooledPicture | None":
+        """The oldest ended picture, once its job is done (blocks), or
+        None when none has ended."""
+        pic = self._lib.h264tpu_pool_take(self._h)
+        if not pic:
+            return None
+        pooled = bool(self._lib.h264tpu_picture_pooled(pic))
+        STATS["pictures_pooled" if pooled else "pictures_serial"] += 1
+        return PooledPicture(self, pic, pooled)
+
+    def pool_finish(self) -> None:
+        """At the stream's end: a held slice is parsed, and its picture
+        ends (and is queued) if the slice completed it."""
+        self._lib.h264tpu_pool_finish(self._h)
+
+
+class PooledPicture(_Reads):
+    """One picture taken from a pooled FrontendDecoder: the reads
+    Decoder._prepare makes of a decoder instance's current picture
+    (stream_info as the picture ended, pic_info, take_non_existing,
+    blob_counts, blob_compact, ipcm), identical to the serial
+    front-end's, and the output pictures the DPB queued as it ended.
+    release() hands it back."""
+
+    _PREFIX = "h264tpu_picture_"
+
+    def __init__(self, fe: FrontendDecoder, handle, pooled: bool):
+        self._lib = fe._lib
+        self._fe_h = fe._h
+        self._h = handle
+        self.pooled = pooled      # its slice data ran on the pool
+
+    def outputs(self) -> list[dict]:
+        """Display-order output pictures queued when the picture ended
+        (what next_output() drains after a serial PIC_RDY)."""
+        out = np.zeros((64, 4), np.int32)
+        n = self._lib.h264tpu_picture_outputs(self._h, out.reshape(-1), 64)
+        if n > 64:
+            out = np.zeros((n, 4), np.int32)
+            self._lib.h264tpu_picture_outputs(self._h, out.reshape(-1), n)
+        return [{"slot": int(o[0]), "pic_id": int(o[1]),
+                 "is_idr": int(o[2]), "num_err_mbs": int(o[3])}
+                for o in out[:n]]
+
+    def release(self) -> None:
+        self._lib.h264tpu_pool_release(self._fe_h, self._h)
+        self._h = None
+

@@ -23,8 +23,8 @@ STAMP = Path(__file__).parent / "libh264tpu_torch_frontend.stamp"
 LOCK = Path(__file__).parent / ".build.lock"
 
 CXXFLAGS = [
-    "-std=c++17", "-O3", "-march=native", "-fPIC", "-Wall", "-Wextra",
-    "-Wno-unused-parameter",
+    "-std=c++17", "-O3", "-march=native", "-fPIC", "-pthread", "-Wall",
+    "-Wextra", "-Wno-unused-parameter",
 ]
 
 
@@ -78,7 +78,8 @@ def build(force: bool = False) -> Path:
             if failed:
                 raise RuntimeError(f"front-end compile failed: {failed}")
             tmp = LIB.with_suffix(f".so.tmp{os.getpid()}")
-            subprocess.run(["g++", "-shared", *objs, "-o", str(tmp)],
+            subprocess.run(["g++", "-shared", "-pthread", *objs, "-o",
+                            str(tmp)],
                            check=True)
             os.replace(tmp, LIB)   # atomic: loaders never see a partial .so
         STAMP.write_text(fp)

@@ -8,7 +8,11 @@
 // class reports (DPB slot allocation, concealment requests, output queue).
 #pragma once
 
+#include <array>
+#include <condition_variable>
+#include <deque>
 #include <memory>
+#include <mutex>
 
 #include "common.h"
 #include "dpb.h"
@@ -43,6 +47,45 @@ struct PicReadyInfo {
   i32 conceal_ref_slot = -1;      // slot to copy from (-1 -> grey fill)
 };
 
+// One picture's parse state: the MB parser's per-MB state and the dense
+// tensors it writes. The serial front-end reuses one for every picture.
+// In pool mode each picture in flight has its own, with the inputs of its
+// job (the slice data of a held first slice) and what the in-order stage
+// fixed when the picture ended.
+struct Picture {
+  MbParser parser;
+  FrameTensors tensors;
+
+  // the held slice: its RBSP, where its slice data starts and what the
+  // slice data reads, by value (a later SPS or PPS NAL may replace the
+  // stored sets, and the DPB moves on, while the job runs)
+  bool held = false;
+  std::vector<u8> rbsp;
+  u32 data_bit = 0;
+  SliceHeader sh;
+  Sps sps;
+  Pps pps;
+  RefSlots refs;
+  std::vector<u32> slice_group_map;
+  u32 slice_id = 0;
+
+  // fixed in order when the picture ended
+  bool pooled = false;     // its slice data ran on the pool
+  u32 seq = 0;             // picture number: names it in the DPB
+  u32 epoch = 0;           // activations before it (Decoder::stale_)
+  u32 pic_size = 0;
+  PicReadyInfo info;       // the concealment fields once taken
+  i32 first_ref = -1;      // first available reference slot
+  std::vector<i32> non_existing;
+  std::vector<DpbOutPicture> outputs;
+  std::array<u32, 16> stream_info{};
+
+  // the job's result
+  u32 num_decoded = 0;     // MBs of the held slice
+  u32 num_concealed = 0;
+  bool done = false;       // guarded by Decoder::pool_mu_
+};
+
 struct AubState {
   // reference aubCheck_t (h264bsd_storage.h:57-66)
   NalUnit nu_prev;
@@ -60,17 +103,59 @@ class Decoder {
   // dispatch (see Dpb::init; clamped so every slot id stays < 32 for
   // the u32 used_slot_mask).
   explicit Decoder(bool no_output_reordering = false,
-                   bool intra_concealment = false, u32 slot_margin = 0)
-      : no_reordering_(no_output_reordering),
-        intra_concealment_(intra_concealment),
-        slot_margin_req_(slot_margin) {}
+                   bool intra_concealment = false, u32 slot_margin = 0);
+  ~Decoder();
 
   // Decode one NAL unit (reference h264bsdDecode decoder.c:152-515).
   u32 decode(const u8* data, u32 len, u32 pic_id, u32* read_bytes);
 
-  // Valid after decode() returns kPicRdy.
+  // Valid after decode() returns kPicRdy (serial mode).
   const PicReadyInfo& pic_info() const { return pic_info_; }
-  const FrameTensors& tensors() const { return tensors_; }
+  FrameTensors& tensors() { return cur_->tensors; }
+
+  // ---- pool mode ----
+  // Pictures are parsed in parallel and handed on in decode order. A
+  // picture's first slice, when it starts at MB 0 with one slice group
+  // and redundant_pic_cnt 0, is held: its slice data becomes a job for
+  // the pool's workers once the next NAL that can end the picture (an
+  // access-unit boundary) has ended it, whatever the job finds, and
+  // decode() goes on with the next picture meanwhile. A NAL after which
+  // the held slice's outcome matters (another slice of its access unit)
+  // parses it on the calling thread and the picture goes on serially.
+  // decode() then returns kPicRdy when a picture ended (and was queued),
+  // with this NAL to be decoded again, as the serial front-end does when
+  // a boundary ends a picture; every picture is read from its Picture
+  // (take_picture), in decode order, identical to the serial front-end's.
+  // The in-order calls (decode, take_picture, release_picture,
+  // finish_stream) come from one thread; the workers call next_job and
+  // run_job. Start before the first NAL.
+  void start_pool() {
+    pooled_ = true;
+    cur_->parser.stale_exact = false;
+  }
+  // Worker side: the next job (nullptr once stop_pool was called), and
+  // running it: the held slice's data if any, the concealment, then, in
+  // picture order after the previous picture's job, the picture's stale
+  // MB state fixed and handed on (stale_) and its packed records built.
+  Picture* next_job();
+  void run_job(Picture* p);
+  void stop_pool();
+  // [ended pictures not yet taken, whether the oldest one's job is done,
+  //  output pictures queued so far (decode_stream's pic_id)]
+  void poll(u32* out3);
+  // The oldest ended picture, once its job is done, with its concealment
+  // fields and the DPB's copies of its error count filled in; nullptr
+  // when none ended. Hand it back with release_picture once read.
+  Picture* take_picture();
+  void release_picture(Picture* p);
+  // At the stream's end (no NAL follows): a held slice is parsed (on the
+  // pool, waited for), and its picture ends if the slice completed it
+  // (the serial front-end reported the picture with the slice).
+  void finish_stream();
+  // [width_mbs, height_mbs, dpb_slots, crop_flag, crop_left, crop_w,
+  //  crop_top, crop_h, sar_w, sar_h, profile, full_range, num_slots,
+  //  matrix_coefficients, slot_margin, 0]
+  void stream_info(u32* out16) const;
 
   // Display-order output drain (reference h264bsdNextOutputPicture
   // decoder.c:599). Returns nullptr when the queue is empty.
@@ -149,8 +234,20 @@ class Decoder {
   Status store_sps(Sps&& sps);
   Status store_pps(Pps&& pps);
   Status check_pps_vs_sps(const Pps& pps, const Sps& sps) const;
-  void finish_picture(bool valid_slice);
-  void prepare_concealment(bool whole_pic_lost);
+  // epilogue (decoder.c:473-511) of the picture just ended
+  u32 end_picture(u32 conceal_slice_type);
+  void conceal_fields(PicReadyInfo* info, u32 concealed, u32 pic_size,
+                      i32 first_ref) const;
+  // pool mode
+  void submit_job(Picture* p);
+  void hold_slice(const BitReader& br);
+  bool parse_held_slice();
+  Picture* acquire_picture();
+  void wait_done(Picture* p);
+  // Before the in-order thread parses into cur_: every ended picture's
+  // job done, and cur_'s parser given the serial stale MB state.
+  void make_exact();
+  void reset_stale(u32 epoch, u32 width_mbs, u32 height_mbs);
 
   bool no_reordering_ = false;
   // reference intraConcealmentFlag (h264bsd_storage.h:148-149, read at
@@ -195,13 +292,34 @@ class Decoder {
   std::vector<u8> sei_out_;
 
   NalExtractor extractor_;
-  MbParser parser_;
   Dpb dpb_;
   PocStorage poc_;
-  FrameTensors tensors_;
   std::vector<u32> slice_group_map_;
   PicReadyInfo pic_info_;
   std::vector<i32> non_existing_;
+
+  // every Picture made; cur_ is the one being parsed
+  std::vector<std::unique_ptr<Picture>> pictures_;
+  Picture* cur_ = nullptr;
+
+  // pool mode
+  bool pooled_ = false;
+  std::deque<Picture*> ended_;   // in decode order, not yet taken
+  std::vector<Picture*> free_;
+  // the per-MB fields one FrameTensors reused by every picture would
+  // hold after picture stale_seq_ (run_job moves them on in picture
+  // order); reset with each activation, as the serial front-end's are
+  FrameTensors stale_;
+  std::vector<StaleMb> stale_mbs_;   // the serial parser's, likewise
+  u32 stale_epoch_ = 0;
+  u32 epoch_ = 0;
+  u32 seq_ = 0;
+  u32 outputs_queued_ = 0;
+  std::mutex pool_mu_;
+  std::condition_variable job_cv_, done_cv_, chain_cv_;
+  std::deque<Picture*> jobs_;
+  u32 stale_seq_ = 0;   // the last picture whose job moved stale_ on
+  bool pool_stopped_ = false;
 };
 
 }  // namespace h264tpu

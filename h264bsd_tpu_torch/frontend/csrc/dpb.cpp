@@ -56,6 +56,21 @@ i32 Dpb::ref_pic_slot(u32 index) const {
   return p.is_existing() ? p.slot : -1;
 }
 
+RefSlots Dpb::ref_slots() const {
+  RefSlots r;
+  for (u32 i = 0; i <= kMaxRefIdxL0Active; ++i) r.slot[i] = ref_pic_slot(i);
+  return r;
+}
+
+void Dpb::set_num_err_mbs(u32 seq, u32 num_err_mbs) {
+  for (DpbPicture& p : buffer_) {
+    if (p.seq == seq) p.num_err_mbs = num_err_mbs;
+  }
+  for (DpbOutPicture& o : out_buf_) {
+    if (o.seq == seq) o.num_err_mbs = num_err_mbs;
+  }
+}
+
 void Dpb::set_pic_nums(u32 curr_frame_num) {
   // reference SetPicNums dpb.c:1176-1211: map modulo frame numbers to
   // monotonic picNums relative to the current frame.
@@ -215,7 +230,7 @@ Status Dpb::mmcop6(u32 frame_num, i32 poc, u32 lt_frame_idx) {
 
 Status Dpb::mark_dec_ref_pic(const DecRefPicMarking* mark, u32 frame_num,
                              i32 pic_order_cnt, bool is_idr, u32 pic_id,
-                             u32 num_err_mbs) {
+                             u32 num_err_mbs, u32 seq) {
   // reference h264bsdMarkDecRefPic dpb.c:598-830.
   last_contains_mmco5_ = false;
   Status status = Status::kOk;
@@ -298,9 +313,11 @@ Status Dpb::mark_dec_ref_pic(const DecRefPicMarking* mark, u32 frame_num,
   cur.is_idr = is_idr ? 1 : 0;
   cur.pic_id = pic_id;
   cur.num_err_mbs = num_err_mbs;
+  cur.seq = seq;
 
   if (no_reordering_) {
-    out_buf_.push_back({cur.slot, cur.pic_id, cur.num_err_mbs, cur.is_idr});
+    out_buf_.push_back(
+        {cur.slot, cur.pic_id, cur.num_err_mbs, cur.is_idr, cur.seq});
     num_out_++;
   } else {
     while (fullness_ > dpb_size_) output_picture();
@@ -355,6 +372,7 @@ Status Dpb::check_gaps_in_frame_num(u32 frame_num, bool is_ref_pic,
       tail.pic_num = i32(unused_fn);
       tail.pic_order_cnt = 0;
       tail.to_be_displayed = false;
+      tail.seq = 0;
       if (new_non_existing) new_non_existing->push_back(tail.slot);
       fullness_++;
       num_ref_frames_++;
@@ -407,7 +425,8 @@ Status Dpb::output_picture() {
   const DpbPicture* found = find_smallest_poc();
   if (!found) return Status::kError;
   DpbPicture* pic = const_cast<DpbPicture*>(found);
-  out_buf_.push_back({pic->slot, pic->pic_id, pic->num_err_mbs, pic->is_idr});
+  out_buf_.push_back(
+      {pic->slot, pic->pic_id, pic->num_err_mbs, pic->is_idr, pic->seq});
   num_out_++;
   pic->to_be_displayed = false;
   if (!pic->is_reference()) fullness_--;

@@ -33,6 +33,7 @@ struct DpbPicture {
   u32 pic_id = 0;
   u32 num_err_mbs = 0;
   u32 is_idr = 0;
+  u32 seq = 0;  // the decoder's picture number (pool mode), 0 = none
 
   bool is_reference() const { return status != PicStatus::kUnused; }
   bool is_existing() const {
@@ -49,9 +50,20 @@ struct DpbOutPicture {
   u32 pic_id = 0;
   u32 num_err_mbs = 0;
   u32 is_idr = 0;
+  u32 seq = 0;
 };
 
 constexpr u32 kMaxRefIdxL0Active = 16;
+
+// The slots of the reference list as slice data reads them
+// (Dpb::ref_pic_slot of list indices 0..16), taken once the list is
+// reordered, so a slice's data can be parsed while the DPB moves on.
+struct RefSlots {
+  std::array<i32, kMaxRefIdxL0Active + 1> slot;
+  i32 operator()(u32 index) const {
+    return index > kMaxRefIdxL0Active ? -1 : slot[index];
+  }
+};
 
 class Dpb {
  public:
@@ -79,10 +91,14 @@ class Dpb {
                               u32 curr_frame_num, u32 num_ref_idx_active);
 
   // reference h264bsdMarkDecRefPic :598-830; pass mark == nullptr for
-  // non-reference pictures.
+  // non-reference pictures. seq names the picture for set_num_err_mbs.
   Status mark_dec_ref_pic(const DecRefPicMarking* mark, u32 frame_num,
                           i32 pic_order_cnt, bool is_idr, u32 pic_id,
-                          u32 num_err_mbs);
+                          u32 num_err_mbs, u32 seq = 0);
+
+  // The error MB count of picture `seq`, known only once its slice data
+  // is parsed (pool mode): set wherever the DPB holds a copy of it.
+  void set_num_err_mbs(u32 seq, u32 num_err_mbs);
 
   // reference h264bsdCheckGapsInFrameNum :1218-1330. Appends every
   // synthesized NON_EXISTING frame's slot to *new_non_existing so the device
@@ -94,6 +110,7 @@ class Dpb {
 
   // reference h264bsdGetRefPicData :835 — slot id for list index, or -1.
   i32 ref_pic_slot(u32 index) const;
+  RefSlots ref_slots() const;
 
   // reference h264bsdDpbOutputPicture :1462.
   const DpbOutPicture* next_output();

@@ -1,6 +1,7 @@
 #include "mbparse.h"
 
 #include <algorithm>
+#include <atomic>
 
 #include "cavlc.h"
 #include "slicegroupmap.h"
@@ -234,6 +235,8 @@ void FrameTensors::reset(u32 w_mbs, u32 h_mbs) {
   used_slot_mask = 0;
   ipcm_mb.clear();
   ipcm_data.clear();
+  written.assign(n_mbs, 0);
+  packed_built = false;
   // reserve the sparse streams at an I-frame-heavy working set so the
   // first picture never pays vector-growth reallocation
   sparse_id.reserve(n_mbs * 8);
@@ -259,6 +262,84 @@ void FrameTensors::clear_picture() {
   slice_table.clear();
   mv_min[0] = mv_min[1] = mv_max[0] = mv_max[1] = 0;
   used_slot_mask = 0;
+  std::fill(written.begin(), written.end(), 0);
+  packed_built = false;
+}
+
+bool FrameTensors::all_written() const {
+  return std::find(written.begin(), written.end(), 0) == written.end();
+}
+
+u32 FrameTensors::conceal_undecoded(u32 n) {
+  // mark undecoded MBs as concealed intra MBs with qp 40 so deblocking
+  // smooths them; whole-picture loss disables filtering entirely. Pixel
+  // concealment runs on the device, driven by mb_class == concealed and
+  // the picture's conceal_* fields.
+  bool any_decoded = false;
+  for (u32 i = 0; i < n; ++i) {
+    if (decoded[i]) {
+      any_decoded = true;
+      break;
+    }
+  }
+  u32 count = 0;
+  for (u32 i = 0; i < n; ++i) {
+    if (!decoded[i]) {
+      count++;
+      mb_class[i] = kMbConcealed;
+      qp_y[i] = 40;
+      disable_dblk[i] = 0;
+      filter_off_a[i] = 0;
+      filter_off_b[i] = 0;
+      chroma_qp_offset[i] = 0;  // ConcealMb conceal.c:317
+      decoded[i] = 1;
+    }
+  }
+  if (!any_decoded) {
+    // whole picture lost -> no in-loop filtering (conceal.c:190-196)
+    for (u32 i = 0; i < n; ++i) disable_dblk[i] = 1;
+  }
+  packed_built = false;
+  return count;
+}
+
+namespace {
+std::atomic<u64> g_packed_builds{0};
+}  // namespace
+
+u64 packed_builds() { return g_packed_builds.load(); }
+
+bool FrameTensors::ensure_packed() {
+  if (packed_built) return false;
+  build_packed();
+  classify_sparse();
+  packed_built = true;
+  g_packed_builds.fetch_add(1);
+  return true;
+}
+
+void FrameTensors::carry_stale(FrameTensors* stale) {
+  // the per-MB fields emit_mb writes, clear_picture leaves alone and
+  // build_packed reads
+  if (!all_written()) {
+    for (u32 i = 0; i < n_mbs; ++i) {
+      if (written[i]) continue;
+      i16_mode[i] = stale->i16_mode[i];
+      chroma_mode[i] = stale->chroma_mode[i];
+      mb_avail[i] = stale->mb_avail[i];
+      std::copy_n(&stale->mv[i * 32], 32, &mv[i * 32]);
+      std::copy_n(&stale->ref_slot[i * 16], 16, &ref_slot[i * 16]);
+      std::copy_n(&stale->nnz_dc[i * 3], 3, &nnz_dc[i * 3]);
+    }
+    packed_built = false;
+  }
+  ensure_packed();
+  std::swap(i16_mode, stale->i16_mode);
+  std::swap(chroma_mode, stale->chroma_mode);
+  std::swap(mb_avail, stale->mb_avail);
+  std::swap(mv, stale->mv);
+  std::swap(ref_slot, stale->ref_slot);
+  std::swap(nnz_dc, stale->nnz_dc);
 }
 
 void FrameTensors::build_packed() {
@@ -538,8 +619,88 @@ void MbParser::reset_picture(FrameTensors* out) {
   for (HostMb& m : mbs_) {
     m.slice_id = 0;
     m.decoded = 0;
+    m.w_mv = m.w_i4 = 0;
+    m.w_ref = 0;
   }
   if (out) out->clear_picture();
+}
+
+void MbParser::load_stale(const std::vector<StaleMb>& stale) {
+  for (u32 i = 0; i < n_mbs_; ++i) {
+    HostMb& m = mbs_[i];
+    std::memcpy(m.mv, stale[i].mv, sizeof(m.mv));
+    std::memcpy(m.ref_slot, stale[i].ref_slot, sizeof(m.ref_slot));
+    std::memcpy(m.intra4_modes, stale[i].intra4_modes,
+                sizeof(m.intra4_modes));
+  }
+}
+
+bool MbParser::fix_stale(const std::vector<StaleMb>& stale,
+                         FrameTensors* out) const {
+  // an inter MB wrote its every mv and ref_slot; its intra4_modes reach
+  // no packed record, so they are left as they are
+  bool changed = false;
+  for (u32 i = 0; i < n_mbs_; ++i) {
+    const HostMb& m = mbs_[i];
+    if (!out->written[i] || m.motion_written()) continue;
+    changed = true;
+    const StaleMb& st = stale[i];
+    // an Intra_16x16 MB's modes go out in the intra payload
+    const bool is_i16 = out->mb_class[i] == kMbIntra16;
+    for (u32 z = 0; z < 16; ++z) {
+      const u32 r = kZig2Ras[z];
+      i16* mv = &out->mv[i * 32 + 2 * r];
+      if (!(m.w_mv >> z & 1)) {
+        mv[0] = st.mv[z][0];
+        mv[1] = st.mv[z][1];
+      }
+      i8* ref = &out->ref_slot[i * 16 + r];
+      if (!(m.w_ref >> (z >> 2) & 1)) *ref = st.ref_slot[z >> 2];
+      if (is_i16 && !(m.w_i4 >> z & 1)) {
+        out->i4_modes[i * 16 + r] = st.intra4_modes[z];
+      }
+      // emit_mb's fold, with the right values
+      if (*ref >= 0 && *ref < 32) out->used_slot_mask |= 1u << *ref;
+      for (u32 c = 0; c < 2; ++c) {
+        if (mv[c] < out->mv_min[c]) out->mv_min[c] = mv[c];
+        if (mv[c] > out->mv_max[c]) out->mv_max[c] = mv[c];
+      }
+    }
+  }
+  return changed;
+}
+
+void MbParser::store_stale(std::vector<StaleMb>* stale) const {
+  for (u32 i = 0; i < n_mbs_; ++i) {
+    const HostMb& m = mbs_[i];
+    StaleMb& st = (*stale)[i];
+    if (m.w_mv == 0xFFFF) {
+      std::memcpy(st.mv, m.mv, sizeof(st.mv));
+    } else {
+      for (u32 z = 0; z < 16; ++z) {
+        if (m.w_mv >> z & 1) {
+          st.mv[z][0] = m.mv[z][0];
+          st.mv[z][1] = m.mv[z][1];
+        }
+      }
+    }
+    for (u32 p = 0; p < 4; ++p) {
+      if (m.w_ref >> p & 1) st.ref_slot[p] = m.ref_slot[p];
+    }
+    if (m.w_i4) {
+      for (u32 z = 0; z < 16; ++z) {
+        if (m.w_i4 >> z & 1) st.intra4_modes[z] = m.intra4_modes[z];
+      }
+    }
+  }
+}
+
+bool MbParser::emitted_fresh(const FrameTensors& out) const {
+  if (stale_exact) return true;
+  for (u32 i = 0; i < n_mbs_; ++i) {
+    if (out.written[i] && !mbs_[i].motion_written()) return false;
+  }
+  return true;
 }
 
 const HostMb* MbParser::nbr_mb(u32 addr, int which) const {
@@ -837,7 +998,7 @@ Status MbParser::residual_range_check(const i16 levels[27][16],
 
 Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
                                const u32 ref_idx[4], const i16 mvd[16][2],
-                               const u8 sub_types[4], const Dpb& dpb,
+                               const u8 sub_types[4], const RefSlots& refs,
                                HostMb* cur) {
   // Host-side equivalent of the MV-prediction half of
   // h264bsdInterPrediction (reference inter_prediction.c:361-918).
@@ -860,10 +1021,11 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
   };
 
   auto set_slot = [&](u32 part, u32 ref) -> bool {
-    i32 slot = dpb.ref_pic_slot(ref);
+    i32 slot = refs(ref);
     if (slot < 0) return false;
     cur->ref_pic[part] = u8(ref);
     cur->ref_slot[part] = i8(slot);
+    cur->w_ref |= u8(1u << part);
     return true;
   };
 
@@ -899,6 +1061,7 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
         cur->mv[z][0] = mv[0];
         cur->mv[z][1] = mv[1];
       }
+      cur->w_mv = 0xFFFF;
       return Status::kOk;
     }
 
@@ -919,6 +1082,7 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
       if (!mv_in_range(mv[0], mv[1])) return Status::kError;
       if (!set_slot(0, ref) || !set_slot(1, ref)) return Status::kError;
       for (u32 z = 0; z < 8; ++z) { cur->mv[z][0] = mv[0]; cur->mv[z][1] = mv[1]; }
+      cur->w_mv |= 0x00FF;
 
       // lower partition: prefer A's MV when A has the same reference
       ref = ref_idx[1];
@@ -937,6 +1101,7 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
       if (!mv_in_range(mv[0], mv[1])) return Status::kError;
       if (!set_slot(2, ref) || !set_slot(3, ref)) return Status::kError;
       for (u32 z = 8; z < 16; ++z) { cur->mv[z][0] = mv[0]; cur->mv[z][1] = mv[1]; }
+      cur->w_mv |= 0xFF00;
       return Status::kOk;
     }
 
@@ -958,6 +1123,7 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
       if (!set_slot(0, ref) || !set_slot(2, ref)) return Status::kError;
       static const u8 left_blocks[8] = {0, 1, 2, 3, 8, 9, 10, 11};
       for (u8 z : left_blocks) { cur->mv[z][0] = mv[0]; cur->mv[z][1] = mv[1]; }
+      cur->w_mv |= 0x0F0F;
 
       // right partition: prefer C's (or its fallback's) MV on match
       ref = ref_idx[1];
@@ -978,6 +1144,7 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
       if (!set_slot(1, ref) || !set_slot(3, ref)) return Status::kError;
       static const u8 right_blocks[8] = {4, 5, 6, 7, 12, 13, 14, 15};
       for (u8 z : right_blocks) { cur->mv[z][0] = mv[0]; cur->mv[z][1] = mv[1]; }
+      cur->w_mv |= 0xF0F0;
       return Status::kOk;
     }
 
@@ -1008,17 +1175,21 @@ Status MbParser::mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
               for (u32 k = 0; k < 4; ++k) {
                 cur->mv[4 * p + k][0] = mv[0]; cur->mv[4 * p + k][1] = mv[1];
               }
+              cur->w_mv |= u16(0xFu << (4 * p));
               break;
             case 1:  // 8x4
               cur->mv[4 * p + 2 * s][0] = mv[0]; cur->mv[4 * p + 2 * s][1] = mv[1];
               cur->mv[4 * p + 2 * s + 1][0] = mv[0]; cur->mv[4 * p + 2 * s + 1][1] = mv[1];
+              cur->w_mv |= u16(0x3u << (4 * p + 2 * s));
               break;
             case 2:  // 4x8
               cur->mv[4 * p + s][0] = mv[0]; cur->mv[4 * p + s][1] = mv[1];
               cur->mv[4 * p + s + 2][0] = mv[0]; cur->mv[4 * p + s + 2][1] = mv[1];
+              cur->w_mv |= u16(0x5u << (4 * p + s));
               break;
             default:
               cur->mv[4 * p + s][0] = mv[0]; cur->mv[4 * p + s][1] = mv[1];
+              cur->w_mv |= u16(1u << (4 * p + s));
               break;
           }
         }
@@ -1033,6 +1204,8 @@ void MbParser::emit_mb(u32 addr, const SliceContext& ctx, const HostMb& cur,
                        const u16 coeff_maps[24], const u8 i4_avail[16],
                        u8 avail, u8 i16_mode, u8 chroma_mode,
                        FrameTensors* out) const {
+  out->written[addr] = 1;
+  out->packed_built = false;
   out->mb_class[addr] = u8(mb_class);
   out->qp_y[addr] = cur.qp_y;
   out->slice_id[addr] = cur.slice_id;
@@ -1053,6 +1226,9 @@ void MbParser::emit_mb(u32 addr, const SliceContext& ctx, const HostMb& cur,
   u8* availv = &out->i4_avail[addr * 16];
   i16* mvout = &out->mv[addr * 32];
   i8* refout = &out->ref_slot[addr * 16];
+  // an MB's mv and ref_slot from an earlier picture fold in here only
+  // when they are the serial parser's (fix_stale folds them otherwise)
+  const bool fold = stale_exact || cur.motion_written();
   for (u32 r = 0; r < 16; ++r) {
     u32 z = kZig2Ras[r];
     nnz[r] = u8(cur.total_coeff[z]);
@@ -1061,6 +1237,7 @@ void MbParser::emit_mb(u32 addr, const SliceContext& ctx, const HostMb& cur,
     mvout[2 * r + 0] = cur.mv[z][0];
     mvout[2 * r + 1] = cur.mv[z][1];
     refout[r] = cur.ref_slot[z >> 2];
+    if (!fold) continue;
     if (cur.ref_slot[z >> 2] >= 0 && cur.ref_slot[z >> 2] < 32) {
       out->used_slot_mask |= 1u << cur.ref_slot[z >> 2];
     }
@@ -1128,7 +1305,7 @@ void MbParser::emit_mb(u32 addr, const SliceContext& ctx, const HostMb& cur,
 }
 
 Status MbParser::parse_macroblock(BitReader& br, SliceContext& ctx, u32 addr,
-                                  const Dpb& dpb, FrameTensors* out,
+                                  const RefSlots& refs, FrameTensors* out,
                                   bool skipped) {
   // Combines the parse half (h264bsdDecodeMacroblockLayer,
   // macroblock_layer.c:134-243) with the state/derivation half of
@@ -1349,6 +1526,7 @@ Status MbParser::parse_macroblock(BitReader& br, SliceContext& ctx, u32 addr,
           mode = rem_mode[z] < mode ? rem_mode[z] : rem_mode[z] + 1;
         }
         cur.intra4_modes[z] = u8(mode);
+        cur.w_i4 |= u16(1u << z);
         i4_avail[z] = (ba ? kAvailA : 0) | (bb ? kAvailB : 0) |
                       (bc ? kAvailC : 0) | (bd ? kAvailD : 0);
 
@@ -1376,7 +1554,7 @@ Status MbParser::parse_macroblock(BitReader& br, SliceContext& ctx, u32 addr,
     }
   } else {
     Status s = mv_prediction(addr, slice_id, mb_type, ref_idx, mvd, sub_types,
-                             dpb, &cur);
+                             refs, &cur);
     if (!ok(s)) { MBDBG("err: mv_pred mb=%u type=%u\n", addr, mb_type); return s; }
   }
 
@@ -1391,7 +1569,8 @@ Status MbParser::parse_macroblock(BitReader& br, SliceContext& ctx, u32 addr,
 
 Status MbParser::decode_slice_data(BitReader& br, const SliceHeader& sh,
                                    const Sps& sps, const Pps& pps,
-                                   const Dpb& dpb, const u32* slice_group_map,
+                                   const RefSlots& refs,
+                                   const u32* slice_group_map,
                                    u32 slice_id, FrameTensors* out,
                                    u32* num_decoded_mbs, u32* last_mb_addr) {
   // reference h264bsdDecodeSliceData slice_data.c:86-232
@@ -1431,7 +1610,7 @@ Status MbParser::decode_slice_data(BitReader& br, const SliceHeader& sh,
     } else {
       prev_skipped = false;
     }
-    Status s = parse_macroblock(br, ctx, curr, dpb, out, skipped);
+    Status s = parse_macroblock(br, ctx, curr, refs, out, skipped);
     if (!ok(s)) { MBDBG("err: parse_macroblock mb=%u skipped=%d\n", curr, int(skipped)); return s; }
 
     if (mbs_[curr].decoded == 1) mb_count++;
@@ -1472,6 +1651,7 @@ void MbParser::mark_slice_corrupted(u32 first_mb_in_slice, u32 slice_id,
     if (m.slice_id == slice_id && m.decoded) {
       m.decoded--;
       out->decoded[curr] = m.decoded;
+      out->packed_built = false;
       if (m.decoded == 0) out->mb_class[curr] = kMbNone;
     } else {
       break;

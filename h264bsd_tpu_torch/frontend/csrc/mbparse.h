@@ -138,7 +138,30 @@ struct FrameTensors {
 
   void reset(u32 w_mbs, u32 h_mbs);
   void clear_picture();  // new picture: zero decoded state
+
+  // [nMB] 1 where emit_mb wrote the MB this picture. The per-MB fields of
+  // an MB it did not write (a concealed one) keep the values of the last
+  // picture that wrote it, and those reach the packed records.
+  std::vector<u8> written;
+  bool all_written() const;
+  // State half of h264bsdConceal (conceal.c:124-254) over the first n MBs:
+  // every undecoded MB becomes a concealed one; returns how many.
+  u32 conceal_undecoded(u32 n);
+  // build_packed() and classify_sparse() once a picture: false when the
+  // records were already built and nothing has changed them since.
+  bool ensure_packed();
+  bool packed_built = false;
+  // Pool mode, in picture order: the MBs this picture did not write take
+  // the fields the packed records read from `stale` (the state one
+  // FrameTensors reused picture after picture would hold, as the serial
+  // front-end's does), the packed records are built if they are not yet,
+  // then this picture's fields become the new stale state (swapped: this
+  // picture's copies of them are not read again).
+  void carry_stale(FrameTensors* stale);
 };
+
+// Packed-record builds in this process (FrameTensors::ensure_packed).
+u64 packed_builds();
 
 // Host-persistent per-MB parse state (the parse-relevant half of the
 // reference mbStorage_t, h264bsd_macroblock_layer.h:162-185).
@@ -152,6 +175,21 @@ struct HostMb {
   u8 ref_pic[4] = {};          // refIdxL0 per 8x8 part
   i8 ref_slot[4] = {-1, -1, -1, -1};
   u8 qp_y = 0;
+  // what this picture wrote of mv (bit z), ref_slot / ref_pic (bit part)
+  // and intra4_modes (bit z); the rest keeps an earlier picture's values,
+  // which emit_mb hands on (an intra MB's mv and ref_slot, say)
+  u16 w_mv = 0;
+  u16 w_i4 = 0;
+  u8 w_ref = 0;
+  bool motion_written() const { return w_mv == 0xFFFF && w_ref == 0xF; }
+};
+
+// The fields of an MB that a parser reuses picture after picture hands on
+// from an earlier picture where this one did not write them (HostMb).
+struct StaleMb {
+  i16 mv[16][2] = {};
+  i8 ref_slot[4] = {-1, -1, -1, -1};
+  u8 intra4_modes[16] = {};
 };
 
 // Per-slice parse context.
@@ -173,7 +211,8 @@ class MbParser {
   // the incremented per-picture slice counter. Returns kError on invalid
   // stream data (caller then runs mark_slice_corrupted).
   Status decode_slice_data(BitReader& br, const SliceHeader& sh,
-                           const Sps& sps, const Pps& pps, const Dpb& dpb,
+                           const Sps& sps, const Pps& pps,
+                           const RefSlots& refs,
                            const u32* slice_group_map, u32 slice_id,
                            FrameTensors* out, u32* num_decoded_mbs,
                            u32* last_mb_addr);
@@ -186,7 +225,31 @@ class MbParser {
   // reference h264bsdResetStorage storage.c:441 per-MB part.
   void reset_picture(FrameTensors* out);
 
+  // Pool mode, where each picture in flight has its own parser: `stale`
+  // holds what a parser reused by every picture in turn (the serial
+  // front-end's) would hold of the StaleMb fields. load_stale gives this
+  // parser those values before a picture, so it parses and emits as the
+  // serial one would. Otherwise, once the picture is parsed, in picture
+  // order: fix_stale sets the emitted tensors' elements the picture did
+  // not write to `stale`'s values (and the picture's MV extremes and slot
+  // mask with them; returns whether it changed one the packed records
+  // read), then store_stale moves what the picture wrote into `stale`.
+  void load_stale(const std::vector<StaleMb>& stale);
+  bool fix_stale(const std::vector<StaleMb>& stale, FrameTensors* out) const;
+  // Whether this parser's stale values are the serial parser's (true but
+  // in pool mode before load_stale): otherwise emit_mb leaves an MB whose
+  // mv and ref_slot it did not write out of the MV extremes and slot
+  // mask, and fix_stale folds the right values in.
+  bool stale_exact = true;
+  void store_stale(std::vector<StaleMb>* stale) const;
+  // True when this parser's stale values are the serial parser's, or
+  // every MB the picture emitted had its mv and ref_slot written first
+  // (no intra MB): its packed records read nothing stale.
+  bool emitted_fresh(const FrameTensors& out) const;
+
   u32 pic_size_in_mbs() const { return n_mbs_; }
+  u32 width_mbs() const { return width_mbs_; }
+  u32 height_mbs() const { return height_mbs_; }
   const HostMb& mb(u32 i) const { return mbs_[i]; }
 
  private:
@@ -201,13 +264,15 @@ class MbParser {
                    const i16* cur_total_coeff) const;
 
   Status parse_macroblock(BitReader& br, SliceContext& ctx, u32 addr,
-                          const Dpb& dpb, FrameTensors* out, bool skipped);
+                          const RefSlots& refs, FrameTensors* out,
+                          bool skipped);
   Status parse_residual(BitReader& br, u32 addr, u32 slice_id, u32 mb_type,
                         u32 cbp, i16 levels[27][16], u16 coeff_maps[24],
                         i16 total_coeff[27], u32 abs_sums[27]);
   Status mv_prediction(u32 addr, u32 slice_id, u32 mb_type,
                        const u32 ref_idx[4], const i16 mvd[16][2],
-                       const u8 sub_types[4], const Dpb& dpb, HostMb* cur);
+                       const u8 sub_types[4], const RefSlots& refs,
+                       HostMb* cur);
   Status residual_range_check(const i16 levels[27][16],
                               const i16 total_coeff[27],
                               const u32 abs_sums[27], u32 mb_type,

@@ -24,6 +24,7 @@ run the body eagerly (_submit). On the CPU every frame runs eagerly.
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 import time
@@ -349,19 +350,22 @@ class Decoder:
         self._set_ring(tuple(tensor_from_numpy(p, self.device)
                              for p in (y, cb, cr)))
 
-    def _prepare(self):
+    def _prepare(self, pic=None):
         """Host-only half of a frame: gather everything the device step
-        needs (no device work, so it may run on a parse-ahead thread)."""
+        needs (no device work, so it may run on a parse-ahead thread),
+        from the front-end's current picture, or from `pic`, a picture
+        taken from its pool (frontend.binding.PooledPicture)."""
+        src = self._fe if pic is None else pic
         with span("h264.prepare"):
             # read afresh: the ring size (dpb_slots) is known only once the
             # first slice has activated the DPB, after HDRS_RDY
-            g = self._fe.stream_info()
+            g = src.stream_info()
             self._geom = g
-            info = self._fe.pic_info()
+            info = src.pic_info()
             w_mbs, h_mbs = g["width_mbs"], g["height_mbs"]
             n_mbs = w_mbs * h_mbs
-            non_existing = self._fe.take_non_existing()
-            counts = tuple(int(x) for x in self._fe.blob_counts())
+            non_existing = src.take_non_existing()
+            counts = tuple(int(x) for x in src.blob_counts())
             n_slices = counts[6]
             # sparse intra -> list kernel; intra-heavy -> wavefront kernel
             wavefront = counts[5] > WF_THRESH
@@ -391,11 +395,11 @@ class Decoder:
                 caps = caps_from_counts(mx, n_mbs, wavefront)
                 _, need_w = compact_blob_words(mx, n_mbs, caps)
                 total_w = tier(need_w, ladder(8192, 12) + (need_w,))
-            blob = self._fe.blob_compact(*caps, total_w * 4)
+            blob = src.blob_compact(*caps, total_w * 4)
             return dict(info=info, geom=g, w_mbs=w_mbs, h_mbs=h_mbs,
                         n_mbs=n_mbs, blob=blob, caps=caps, wavefront=wavefront,
                         has_inter=info["used_slot_count"] > 0,
-                        ipcm=self._fe.ipcm(),
+                        ipcm=src.ipcm(),
                         non_existing=non_existing)
 
     def _stage(self, preps):
@@ -672,6 +676,13 @@ def pin_caps_for_stream(data: bytes, typical_pct: float = 75.0) -> dict:
     return pins
 
 
+def pool_workers() -> int:
+    """Parse workers of decode_stream's pipelined front-end: the CPUs this
+    process may run on, less one for the consumer and one for the
+    in-order parse thread, at most 4."""
+    return max(1, min(4, len(os.sched_getaffinity(0)) - 2))
+
+
 def decode_stream(data: bytes, max_pictures: int | None = None,
                   pipelined: bool = True, caps_pin: dict = None,
                   device=None, decoder: Decoder = None):
@@ -683,7 +694,11 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
     ahead on a worker thread, and consecutive compatible frames are
     grouped into windows of up to WINDOW frames, each decoded by
     Decoder._submit_window (one host-to-device copy, then one graph replay
-    per frame on the card).
+    per frame on the card). That parse thread keeps the in-order work
+    (NAL units, slice headers, the DPB, the blob layout) and hands each
+    picture's slice data to pool_workers() threads of the front-end's
+    pool (FrontendDecoder.pool_start), taking the pictures back in decode
+    order, identical to a serial parse.
 
     decoder: decode with this Decoder, restarted (Decoder.restart), in
     place of a new one (caps_pin and device are then its own): a decoder
@@ -725,7 +740,33 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
                 except queue.Full:
                     pass
 
+    front = dec._fe
+    workers = pool_workers()
+
+    def hand_on(drain):
+        """Queue the ended pictures, in decode order, while the oldest's
+        job is done, or more than 2 x workers have ended, or `drain`
+        (blocking on the oldest's job then). Returns the output pictures
+        queued so far (the pic_id of the next NAL)."""
+        while True:
+            n, ready, n_out = front.pool_poll()
+            if not n or not (ready or drain or n > 2 * workers):
+                return n_out
+            if ready:
+                pic = front.pool_take()
+            else:
+                fe.STATS["pool_waits"] += 1
+                with span("h264.pool_wait"):
+                    pic = front.pool_take()
+            if pic is None:        # the pool was stopped
+                return n_out
+            prep = dec._prepare(pic)
+            outs = pic.outputs()
+            pic.release()
+            put((prep, outs))
+
     def producer():
+        front.pool_start(workers)
         try:
             pos = 0
             n_out = 0
@@ -735,20 +776,20 @@ def decode_stream(data: bytes, max_pictures: int | None = None,
                 if status == fe.HDRS_RDY:
                     # geometry changes flow through the queue so pending
                     # submits of the previous sequence use its ring
-                    dec._geom = dec._fe.stream_info()
+                    hand_on(drain=True)
+                    dec._geom = front.stream_info()
                     put(("reset",))
-                elif status == fe.PIC_RDY:
-                    prep = dec._prepare()
-                    outs = []
-                    while (o := dec._fe.next_output()) is not None:
-                        outs.append(o)
-                    n_out += len(outs)
-                    put((prep, outs))
                 elif status >= fe.ERROR and read == 0:
                     break
+                n_out = hand_on(drain=False)
+            if not stop.is_set():
+                front.pool_finish()
+                hand_on(drain=True)
         except BaseException as exc:  # re-raised by the consuming thread
             put(("error", exc))
             return
+        finally:
+            front.pool_stop()
         put(None)
 
     # the pending window: consecutive windowable frames of one graph key

@@ -5,8 +5,8 @@ of tools/record_torch_port_checksums.py: 1-4 bytes of a tier-1 stream
 XORed, drawn from a seed by utils/recorded.py corrupt, and decoded by the
 JAX package's decode_stream(pipelined=False)).
 
-Every 4x4-MB corrupted entry goes through decode_stream, pipelined and
-not; StreamingDecoder fed random chunks of 1-200 bytes; framepipe at 2
+Every 4x4-MB corrupted entry goes through decode_stream, pipelined (the
+front-end's parse pool) and not; StreamingDecoder fed random chunks of 1-200 bytes; framepipe at 2
 replicas; GOP-parallel decode with 2 workers; and MultiStreamDecoder on
 two groups of 4 corrupted streams of one geometry. Three entries are
 also decoded live by the JAX package and compared picture by picture
@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 
 from h264bsd_tpu.models import decoder as jdec
+from h264bsd_tpu_torch.frontend import binding as fe
 from h264bsd_tpu_torch.models.decoder import (decode_stream,
                                               frame_checksum_host)
 from h264bsd_tpu_torch.models.stream import StreamingDecoder
@@ -81,11 +82,18 @@ def test_the_corpus():
 
 @pytest.mark.parametrize("name", FUZZ)
 def test_decode_stream_matches_recorded(name):
+    """Pipelined, every picture goes through the front-end's parse pool
+    (frontend.binding.STATS counts each one it hands back)."""
     data = _stream(name)
     for pipelined in (True, False):
+        before = dict(fe.STATS)
         assert _sums(decode_stream(data, pipelined=pipelined,
                                    device="cpu")) == REF[name]["checksums"], \
             f"pipelined={pipelined}"
+        taken = sum(fe.STATS[k] - before[k]
+                    for k in ("pictures_pooled", "pictures_serial"))
+        assert taken >= len(REF[name]["checksums"]) if pipelined else \
+            taken == 0
 
 
 @pytest.mark.parametrize("name", LIVE)
